@@ -112,10 +112,14 @@ setup(
                  "fusion, distributed optimizers, timeline, autotune, and a "
                  "horovodrun-style launcher — on XLA collectives over "
                  "ICI/DCN meshes."),
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
     package_data={
         "horovod_tpu": ["_core/*.cc", "_core/*.h", "_core/Makefile",
                         "_core/libhvd_tpu_core.so"],
+        # the PyTorch/CUDA port builds these with nvcc at first use
+        "horovod_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
