@@ -2,12 +2,19 @@
 """Drive horovod_tpu_torch on one NVIDIA GPU (an H100) and check it.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-CUDA wire-compression kernels from ``horovod_tpu_torch/csrc`` at first use
-(into ``build/torch_kernels/``), then:
+CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu`` and
+``adasum.cu``, one ``nvcc`` each, both at once, into
+``build/torch_kernels/``), then:
 
-1. holds each kernel against its plain-PyTorch twin on the card, byte for
-   byte, at the main-path shape (the flat ResNet-50 gradient as
+1. holds each wire kernel against its plain-PyTorch twin on the card, byte
+   for byte, at the main-path shape (the flat ResNet-50 gradient as
    ``[rows, 256]``) and at ragged shapes, and times both;
+1b. holds the Adasum combine kernel against its twin on the card, to the
+   stated tolerance (the two reduce in different orders), at the largest
+   ResNet-50 leaf ``[1, 2359296]`` and a world-8 tree level
+   ``[4, 2359296]`` (f32), a ragged row, bf16, f16, a zero row and a NaN
+   row; checks that two launches on the same inputs are byte-equal; and
+   times kernel and twin;
 2. trains ResNet-50 at full width (batch 256, 224x224, bf16 autocast) at
    world size 1 through ``DistributedOptimizer(int8, error_feedback=True)``,
    whose error-feedback roundtrip runs the int8 quantize and dequantize
@@ -16,7 +23,16 @@ CUDA wire-compression kernels from ``horovod_tpu_torch/csrc`` at first use
    the same training on the CPU;
 3. trains ResNet-50 at world size 2 (two gloo processes sharing the card) on
    the packed int8 wire and then the int4 wire, and checks that the
-   parameters are bit-identical on both ranks.
+   parameters are bit-identical on both ranks;
+4. trains ResNet-50 at world size 2 (batch 32 per rank, 224x224) for 2
+   steps through ``DistributedOptimizer(op=Adasum)`` -- every pairwise
+   combine a launch of the Adasum kernel -- and checks bit-identical
+   parameters, the launch count and finite losses; then runs the Adasum
+   dry run (257 f32 values per rank, plain and through fp16) against the
+   numpy oracle;
+4b. trains a ResNet-18 of width 8 at world size 4 (32x32, batch 4 per
+   rank, 2 steps of Adasum: a two-level tree) and checks bit-identical
+   parameters on all four ranks.
 
 Exits non-zero, with no result line, when a phase fails or no CUDA device
 is present. The last line of standard output is
@@ -32,17 +48,29 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 BLOCK = 256
+LIBRARIES = ("wire_quant", "adasum")
 SOURCE = "horovod_tpu_torch/csrc/wire_quant.cu"
+ADASUM_SOURCE = "horovod_tpu_torch/csrc/adasum.cu"
 REPLACES = {
     "int8_quantize_2d": "horovod_tpu/ops/pallas_kernels.py:1578",
     "int8_dequantize_2d": "horovod_tpu/ops/pallas_kernels.py:1596",
     "int8_quantize_pack_2d": "horovod_tpu/ops/pallas_kernels.py:1637",
     "int4_quantize_pack_2d": "horovod_tpu/ops/pallas_kernels.py:1728",
+    "adasum_combine_pairs": "horovod_tpu/ops/pallas_kernels.py:1366",
 }
+RESNET50_LEAVES = 161  # gradient leaves of ResNet-50
+ADASUM_N = 2359296     # the largest ResNet-50 leaf (a layer4 3x3 conv)
+# Adasum kernel against its twin: |kernel - twin| <= ADASUM_RTOL * the
+# pair's scale max_j |ac a_j| + |bc b_j|, plus one unit in the last place
+# of the element for bf16 / f16 outputs (a rounding the reduction order
+# can flip)
+ADASUM_RTOL = 4e-6
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 # Device memory rate by card name (NVIDIA data sheets), bytes/s.
 MEMORY_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
                ("H100", 3.35e12))
@@ -88,8 +116,9 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.is_floating_point():  # compare bits: NaN == NaN, -0 != 0
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
     return bool(torch.equal(a, b))
 
 
@@ -125,7 +154,8 @@ def phase_kernels(rate: float) -> dict:
     rows = resnet50_gradient_rows()
     shapes = [(rows, BLOCK, torch.float32), (1, BLOCK, torch.float32),
               (5, 100, torch.float32), (64, BLOCK, torch.bfloat16)]
-    checks = {name: [] for name in REPLACES}
+    checks = {name: [] for name in REPLACES
+              if name != "adasum_combine_pairs"}
     for r, b, dt in shapes:
         x = gradient_like(r, b, gen, dt)
         q, s = ck.int8_quantize_2d(x)
@@ -208,6 +238,145 @@ def phase_kernels(rate: float) -> dict:
             f"{plain_ms:.4f} ms{lib}, {nbytes} bytes, bound {bytes_ms:.4f} ms "
             f"({nbytes / ms / 1e6:.0f} GB/s) on {CARD}")
     return out
+
+
+# -------------------------------------------------------------- phase 1b
+def adasum_pairs(m: int, n: int, gen: torch.Generator, dtype=torch.float32):
+    """Correlated pairs (dot far from 0) with per-pair magnitudes spread
+    over four decades, as two [m, n] tensors on the card."""
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    a = a * torch.pow(10.0, torch.rand(m, 1, generator=gen, device="cuda")
+                      * 4 - 2)
+    c = torch.rand(m, 1, generator=gen, device="cuda") * 4 - 2
+    b = 0.7 * c * a + torch.randn(m, n, generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def adasum_error(k: torch.Tensor, p: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor):
+    """(max |k - p|, max of |k - p| over its bound) on finite outputs; the
+    bound is ADASUM_RTOL times the pair's scale, with f64 coefficients,
+    plus one ulp of the element for bf16 / f16."""
+    ad, bd = a.double(), b.double()
+    dot = (ad * bd).sum(1, keepdim=True)
+    na = (ad * ad).sum(1, keepdim=True)
+    nb = (bd * bd).sum(1, keepdim=True)
+    ac = torch.where(na == 0, 1.0, 1 - dot / (2 * na.clamp_min(1e-300)))
+    bc = torch.where(nb == 0, 1.0, 1 - dot / (2 * nb.clamp_min(1e-300)))
+    scale = (ac.abs() * ad.abs() + bc.abs() * bd.abs()).amax(1, keepdim=True)
+    diff = (k.double() - p.double()).abs()
+    bound = ADASUM_RTOL * scale + ULP.get(k.dtype, 0.0) * p.double().abs()
+    finite = torch.isfinite(diff) & torch.isfinite(bound)
+    diff = torch.where(finite, diff, 0.0)
+    ratio = torch.where(finite, diff / bound.clamp_min(1e-300), 0.0)
+    return float(diff.max()), float(ratio.max())
+
+
+def phase_adasum_kernel(rate: float) -> dict:
+    """The Adasum combine kernel against its twin on the card, its
+    determinism, and its time at the main-path shapes."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = {}
+    for m, n, dt in ((1, ADASUM_N, torch.float32),
+                     (4, ADASUM_N, torch.float32),
+                     (1, 257, torch.float32), (2, 1024, torch.bfloat16),
+                     (2, 1024, torch.float16)):
+        a, b = adasum_pairs(m, n, gen, dt)
+        cases[(m, n, str(dt))] = (a, b)
+    a, b = adasum_pairs(3, 4096, gen)
+    a[0] = 0          # (0, b) -> b
+    b[1] = 0          # (a, 0) -> a
+    a[2] = b[2] = 0   # (0, 0) -> 0
+    cases["zero rows"] = (a, b)
+    a, b = adasum_pairs(2, 4096, gen)
+    a[1, 17] = float("nan")
+    cases["nan row"] = (a, b)
+    # strided rows of one tree level, the executor's buf[0::2] and
+    # buf[1::2]; an odd row length takes the kernel's scalar path
+    level = torch.stack(adasum_pairs(4, 999, gen), 1).reshape(8, 999)
+    cases["strided level"] = (level[0::2], level[1::2])
+
+    checks, worst, max_err = [], 0.0, 0.0
+    for key, (a, b) in cases.items():
+        k = ck.adasum_combine_pairs(a, b)
+        k2 = ck.adasum_combine_pairs(a, b)
+        p = ck.adasum_combine_pairs_plain(a, b)
+        same = bits_equal(k, k2)
+        err, ratio = adasum_error(k, p, a, b)
+        nan_ok = bool(torch.equal(torch.isnan(k), torch.isnan(p)))
+        if key == "zero rows":
+            ok = (bits_equal(k[0], b[0]) and bits_equal(k[1], a[1])
+                  and not k[2].any())
+        elif key == "nan row":
+            ok = bool(torch.isnan(k[1]).all() and torch.isfinite(k[0]).all())
+        else:
+            ok = bool(torch.isfinite(k).all())
+        ok = ok and same and nan_ok and ratio <= 1.0 and k.dtype == a.dtype
+        checks.append((str(key), ok, err, ratio))
+        worst = max(worst, ratio)
+        max_err = max(max_err, err)
+        log(f"  adasum {key}: max |kernel - twin| {err:.3e} = {ratio:.3f} "
+            f"of its bound; two launches byte-equal {same}: ok={ok}")
+    torch.cuda.synchronize()
+    failed = [c for c in checks if not c[1]]
+    log(f"phase 1b: adasum kernel against its twin within {ADASUM_RTOL:g} "
+        f"of the pair scale (+1 ulp bf16/f16), launches byte-equal: "
+        f"{not failed} (worst {worst:.3f} of the bound)")
+    if failed:
+        raise AssertionError(f"adasum kernel disagrees with its twin: "
+                             f"{failed}")
+
+    timed = {}
+    for m in (1, 4):
+        a, b = cases[(m, ADASUM_N, str(torch.float32))]
+        nbytes = 3 * m * ADASUM_N * 4
+        ops = 9 * m * ADASUM_N  # reduce 3 fma pairs, apply 2 mul + 1 add
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = ops / F32_RATE * 1e3
+        timed[m] = {
+            "shape": [m, ADASUM_N], "bytes": nbytes,
+            "ms": cuda_ms(lambda: ck.adasum_combine_pairs(a, b), 50),
+            "plain_ms": cuda_ms(lambda: ck.adasum_combine_pairs_plain(a, b),
+                                10),
+            "device_ms": adasum_device_ms(a, b, 20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        t = timed[m]
+        log(f"  adasum_combine_pairs: [{m}, {ADASUM_N}] f32 kernel "
+            f"{t['ms']:.4f} ms (device time {t['device_ms']}), plain "
+            f"{t['plain_ms']:.4f} ms, {nbytes} bytes, bound "
+            f"{t['bound_ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f} GB/s) "
+            f"on {CARD}")
+    main = timed[1]
+    return {"name": "adasum_combine_pairs", "route": "cuda",
+            "source": ADASUM_SOURCE,
+            "replaces": REPLACES["adasum_combine_pairs"], "launches": 0,
+            "max_abs_err": max_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": main["shape"], "bytes": main["bytes"],
+            "GBps": main["bytes"] / main["ms"] / 1e6, "timed": timed,
+            "checks": checks, "rtol": ADASUM_RTOL}
+
+
+def adasum_device_ms(a, b, iters: int):
+    """Device time of one combine (its reduce and apply kernels), ms, from
+    torch.profiler over ``iters`` calls; None if the profiler recorded no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            ck.adasum_combine_pairs(a, b)
+        torch.cuda.synchronize()
+    dev = _device_ms(prof)
+    total = sum(v for k, v in dev.items() if "adasum_" in k)
+    return total / iters if total else None
 
 
 # --------------------------------------------------------------- phase 2
@@ -411,6 +580,139 @@ def phase_world2() -> dict:
     return {"ranks": ranks, "seconds": time.perf_counter() - t0}
 
 
+# --------------------------------------------------------------- phase 4
+def adasum_worker(model: str, batch: int, image: int, steps: int,
+                  num_filters: int, dryrun: bool) -> dict:
+    """One rank of an Adasum run: the training (launches counted from 0
+    just before it and read just after), then, if asked, the dry run and
+    the in-step primitive against the eager allreduce."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import spmd, testing
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import synthetic_train
+
+    ck.reset_launch_counts()
+    res = synthetic_train(model, batch=batch, image=image, steps=steps,
+                          warmup=0, op="adasum", num_filters=num_filters)
+    res["counts"] = ck.launch_counts()
+    res["backend"] = hvd.backend()
+    if dryrun:
+        res["dryrun"] = testing.adasum_dryrun_worker()
+        g = torch.randn(1000, 2048, device=hvd.device(),
+                        generator=torch.Generator(hvd.device()).manual_seed(
+                            hvd.rank()))
+        res["spmd_equal"] = bits_equal(spmd.allreduce(g, op=hvd.Adasum),
+                                       hvd.allreduce(g, op=hvd.Adasum))
+        res["allreduce_breakdown"] = adasum_allreduce_breakdown(model)
+    return res
+
+
+def adasum_allreduce_breakdown(model: str) -> dict:
+    """The communication of one Adasum step alone: an Adasum allreduce of
+    a seeded tensor of each of ``model``'s parameter shapes, in order, warm.
+    Host-clock ms of the whole loop, then a profiled loop: the combine
+    kernel's device time, all device time, and the host operations that
+    take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+
+    dev = hvd.device()
+    gen = torch.Generator(dev).manual_seed(100 + hvd.rank())
+    grads = [torch.randn(p.shape, device=dev, generator=gen)
+             for p in getattr(resnet, model)().parameters()]
+
+    def loop():
+        for g in grads:
+            hvd.allreduce(g, op=hvd.Adasum)
+        torch.cuda.synchronize(dev)
+
+    loop()
+    t0 = time.perf_counter()
+    loop()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop()
+    device = _device_ms(prof)
+    top = sorted(((e.key, e.self_cpu_time_total / 1e3)
+                  for e in prof.key_averages()), key=lambda kv: -kv[1])[:6]
+    return {"leaves": len(grads),
+            "elements": sum(g.numel() for g in grads),
+            "host_ms": host_ms,
+            "combine_device_ms": sum(v for k, v in device.items()
+                                     if "adasum_" in k),
+            "device_ms": sum(device.values()), "top_host_ops_ms": top}
+
+
+def phase_adasum_world2() -> dict:
+    import numpy as np
+
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    ranks = testing.run_cluster(adasum_worker, np=2, device="cuda",
+                                args=("ResNet50", 32, 224, 2, 64, True),
+                                timeout=900)
+    launches = [r["counts"]["adasum_combine_pairs"] for r in ranks]
+    same = ranks[0]["params_sha256"] == ranks[1]["params_sha256"]
+    finite = all(math.isfinite(v) for r in ranks for v in r["losses"])
+    enough = all(n >= RESNET50_LEAVES * 2 for n in launches)
+    xs = [np.asarray(r["dryrun"][1], np.float64) for r in ranks]
+    want = testing.numpy_adasum(xs)
+    want16 = testing.numpy_adasum([x.astype(np.float16).astype(np.float64)
+                                   for x in xs])
+    dry = (all(np.allclose(r["dryrun"][2], want, rtol=1e-5, atol=1e-6)
+               and np.allclose(r["dryrun"][3], want16, rtol=5e-3, atol=5e-3)
+               for r in ranks)
+           and ranks[0]["dryrun"][2:] == ranks[1]["dryrun"][2:])
+    spmd_ok = all(r["spmd_equal"] for r in ranks)
+    br = ranks[0]["allreduce_breakdown"]
+    ok = same and finite and enough and dry and spmd_ok and all(
+        r["backend"] == "gloo" and r["device"].startswith("cuda")
+        for r in ranks)
+    log(f"phase 4: world 2 (gloo, one card) ResNet-50 batch 32/rank 224x224 "
+        f"Adasum: params bit-identical {same}, adasum_combine_pairs "
+        f"launches {launches} (>= {RESNET50_LEAVES * 2}), losses "
+        f"{[[round(v, 4) for v in r['losses']] for r in ranks]}, "
+        f"{ranks[0]['images_per_sec']:.1f} images/s/rank; dry run vs numpy "
+        f"oracle (f32 rtol 1e-5, fp16 5e-3) and equal on both ranks {dry}; "
+        f"spmd.adasum == allreduce(op=Adasum) bits {spmd_ok}: ok={ok}")
+    log(f"phase 4c: the Adasum allreduce of one ResNet-50 step alone "
+        f"({br['leaves']} leaves, {br['elements']} elements), rank 0: "
+        f"{br['host_ms']:.1f} ms host clock; profiled: combine kernel "
+        f"{br['combine_device_ms']:.3f} ms of {br['device_ms']:.3f} ms "
+        f"device time; top host ops (self ms) "
+        f"{[(k, round(v, 2)) for k, v in br['top_host_ops_ms']]}; on {CARD}")
+    if not ok:
+        raise AssertionError("world-2 Adasum path failed its checks")
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def phase_adasum_world4() -> dict:
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    ranks = testing.run_cluster(adasum_worker, np=4, device="cuda",
+                                args=("ResNet18", 4, 32, 2, 8, False),
+                                timeout=600)
+    launches = [r["counts"]["adasum_combine_pairs"] for r in ranks]
+    same = len({r["params_sha256"] for r in ranks}) == 1
+    finite = all(math.isfinite(v) for r in ranks for v in r["losses"])
+    # two tree levels per leaf per step
+    enough = all(n >= 2 * 2 * r["gradient_leaves"]
+                 for n, r in zip(launches, ranks))
+    ok = same and finite and enough
+    log(f"phase 4b: world 4 (gloo, one card) ResNet-18 width 8 batch 4/rank "
+        f"32x32 Adasum: params bit-identical on all 4 ranks {same}, "
+        f"adasum_combine_pairs launches {launches}, losses "
+        f"{[[round(v, 4) for v in r['losses']] for r in ranks]}: ok={ok}")
+    if not ok:
+        raise AssertionError("world-4 Adasum path failed its checks")
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH", default=None,
@@ -434,29 +736,38 @@ def main(argv=None) -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} cudnn.benchmark=True")
     t0 = time.perf_counter()
-    _build.load("wire_quant")
-    log(f"built wire_quant.cu in {time.perf_counter() - t0:.1f} s")
-    print(_build.compile_log("wire_quant"), file=sys.stderr, flush=True)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(_build.load, LIBRARIES))  # one nvcc each, at once
+    log(f"built {', '.join(f'{n}.cu' for n in LIBRARIES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for n in LIBRARIES:
+        print(_build.compile_log(n), file=sys.stderr, flush=True)
 
     kernels = phase_kernels(rate)
+    kernels["adasum_combine_pairs"] = phase_adasum_kernel(rate)
     world1 = phase_world1()
     breakdown = phase_breakdown(world1["batch"])
     small = phase_small_agreement()
     hvd.shutdown()
     world2 = phase_world2()
+    adasum2 = phase_adasum_world2()
+    adasum4 = phase_adasum_world4()
 
+    # each main-path run counted its launches from 0
+    runs = ([world1["counts"]]
+            + [r[m]["counts"] for r in world2["ranks"]
+               for m in ("int8", "int4")]
+            + [r["counts"] for r in adasum2["ranks"] + adasum4["ranks"]])
     for k in kernels.values():
-        name_ = k["name"]
-        k["launches"] = world1["counts"][name_] + sum(
-            r[m]["counts"][name_] for r in world2["ranks"]
-            for m in ("int8", "int4"))
+        k["launches"] = sum(c[k["name"]] for c in runs)
     missing = [k for k, v in kernels.items() if v["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     report = {"card": CARD, "kernels": list(kernels.values()),
               "world1": world1, "breakdown": breakdown, "small": small,
-              "world2": world2}
+              "world2": world2, "adasum_world2": adasum2,
+              "adasum_world4": adasum4}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -2,9 +2,11 @@
 Hopper GPUs.
 
 Synchronous data-parallel training: ``init`` joins the ranks, gradients are
-averaged by an allreduce (optionally on the int8 / int4 quantized wire, whose
-kernels are CUDA C++ in ``csrc/``), and ``DistributedOptimizer`` takes the
-step. Imports ``torch`` and never ``jax`` or ``horovod_tpu``.
+averaged by an allreduce (optionally on the int8 / int4 quantized wire), and
+``DistributedOptimizer`` takes the step -- or, with ``op=Adasum``, combines
+the local updates with the Adasum rule. The kernels are CUDA C++ in
+``csrc/``. ``spmd`` holds the in-step primitives. Imports ``torch`` and
+never ``jax`` or ``horovod_tpu``.
 
     import horovod_tpu_torch as hvd
     hvd.init()                       # this rank's card; init(device="cpu")
@@ -12,11 +14,13 @@ step. Imports ``torch`` and never ``jax`` or ``horovod_tpu``.
         torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
         named_parameters=model.named_parameters(),
         compression=hvd.Compression.int8, error_feedback=True)
+    # or op=hvd.Adasum (a power-of-2 world), compression none or fp16
 """
 
-from .basics import (Average, Sum, backend, cross_rank, cross_size, device,
-                     init, is_initialized, local_rank, local_size, rank,
-                     shutdown, size)
+from . import spmd
+from .basics import (Adasum, Average, Sum, backend, cross_rank, cross_size,
+                     device, init, is_initialized, local_rank, local_size,
+                     rank, shutdown, size)
 from .exceptions import HorovodError, HorovodInternalError, NotInitializedError
 from .ops.collective_ops import allgather, allreduce, broadcast
 from .ops.compression import Compression
@@ -24,10 +28,10 @@ from .optim.broadcast import broadcast_optimizer_state, broadcast_parameters
 from .optim.distributed import DistributedOptimizer
 
 __all__ = [
-    "Average", "Sum", "Compression", "DistributedOptimizer",
+    "Adasum", "Average", "Sum", "Compression", "DistributedOptimizer",
     "HorovodError", "HorovodInternalError", "NotInitializedError",
     "allgather", "allreduce", "backend", "broadcast",
     "broadcast_optimizer_state", "broadcast_parameters", "cross_rank",
     "cross_size", "device", "init", "is_initialized", "local_rank",
-    "local_size", "rank", "shutdown", "size",
+    "local_size", "rank", "shutdown", "size", "spmd",
 ]

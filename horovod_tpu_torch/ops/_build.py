@@ -7,8 +7,9 @@ source and the flags. The build writes to a per-process temporary name and
 renames it into place, so ranks that start together never load a half-written
 library. Sources come only from this package.
 
-``--use_fast_math`` stays off: the quantizers' bits depend on IEEE division
-and on denormals being kept.
+``--use_fast_math`` stays off: the quantizers' bits and the Adasum
+coefficients depend on IEEE division, and the quantizers' on denormals being
+kept.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict = {}    # one per library: different sources build at once
 _libs: dict = {}
 _logs: dict = {}
 
@@ -53,8 +55,11 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, compiling it if no build
-    of this exact source exists yet."""
+    of this exact source exists yet. Threads may load different libraries
+    at once; each build is its own ``nvcc`` process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -20,19 +20,33 @@ from .compression import Compression
 
 def allreduce(tensor: torch.Tensor, op: int = Average,
               name: Optional[str] = None,
-              compression=Compression.none) -> torch.Tensor:
-    """Sum (``op=Sum``) or average (``op=Average``) ``tensor`` over all
-    ranks. ``compression``: a cast compressor changes the wire dtype; int8 /
-    int4 quantize inside the executor. ``name`` labels the tensor (kept for
-    the reference's surface; this synchronous path needs no negotiation)."""
+              compression=Compression.none, prescale_factor: float = 1.0,
+              postscale_factor: float = 1.0) -> torch.Tensor:
+    """Sum (``op=Sum``), average (``op=Average``) or Adasum-combine
+    (``op=Adasum``, a power-of-2 world) ``tensor`` over all ranks.
+
+    ``compression``: a cast compressor (fp16/bf16) changes the wire dtype,
+    and under Adasum the cast tensor is what gets combined; int8 / int4
+    quantize inside the executor for Sum and Average, and Adasum bypasses
+    them (exact wire). ``prescale_factor`` / ``postscale_factor`` scale
+    each contribution before and the result after a Sum or Average; Adasum,
+    whose rule is scale-invariant, refuses them. ``name`` labels the tensor
+    (kept for the reference's surface; this synchronous path needs no
+    negotiation)."""
+    if op == Adasum:
+        if prescale_factor != 1.0 or postscale_factor != 1.0:
+            raise ValueError(
+                "prescale_factor/postscale_factor are not supported with "
+                "op=Adasum (the combine rule is scale-invariant).")
+        comp, ctx = compression.compress(tensor)
+        return compression.decompress(basics._executor().adasum(comp), ctx)
     if op not in (Average, Sum):
-        if op == Adasum:
-            raise NotImplementedError(
-                "op=Adasum is not ported yet (next slice)")
         raise ValueError(f"unknown reduce op {op!r}")
     comp, ctx = compression.compress(tensor)
     out = basics._executor().allreduce(comp, average=(op == Average),
-                                       wire=compression.wire)
+                                       wire=compression.wire,
+                                       prescale=prescale_factor,
+                                       postscale=postscale_factor)
     return compression.decompress(out, ctx)
 
 

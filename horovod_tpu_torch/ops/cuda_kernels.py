@@ -1,23 +1,33 @@
-"""Wire-compression kernels and their plain-PyTorch twins.
+"""Hand-written CUDA kernels and their plain-PyTorch twins.
 
-Counterpart of the wire section of ``horovod_tpu/ops/pallas_kernels.py``
-(int8 block quantize / dequantize, fused quantize + pack for the int8 and
-int4 wires). The kernels are CUDA C++ in ``csrc/wire_quant.cu``; each
-wrapper here
+Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
 
-* checks device, dtype, shape and contiguity and raises on what the kernel
+* the wire section (int8 block quantize / dequantize, fused quantize + pack
+  for the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
+* the Adasum pairwise combine (``adasum_combine_pairs``), CUDA C++ in
+  ``csrc/adasum.cu``.
+
+Each wrapper here
+
+* checks device, dtype, shape and strides and raises on what the kernel
   does not take;
 * runs the plain twin (same module, ``*_plain``) for a tensor on the CPU,
   and only then;
 * launches the kernel for a CUDA tensor, on the current stream, and raises
-  if the launch fails -- never a fallback to the twin;
+  if the build or the launch fails -- never a fallback to the twin;
 * adds one to its ``launches`` counter per kernel launch.
 
-The formula, shared bit for bit by kernel and twin: per row,
+The quantize formula, shared bit for bit by kernel and twin: per row,
 ``scale = absmax * f32(1/qmax)``, ``safe = scale if scale > 0 else 1``,
 ``q = int8(clip(round_half_even(x / safe), -qmax, qmax))``. A packed row is
 ``[payload | 4 little-endian bytes of the f32 scale]``; int4 payload bytes
 hold half-split nibbles, ``byte j = (q[j] & 0xF) | (q[j + B/2] << 4)``.
+
+The Adasum combine of a pair ``(a, b)``: ``dot``, ``|a|^2`` and ``|b|^2``
+reduced in f32, then ``(1 - dot/(2|a|^2)) a + (1 - dot/(2|b|^2)) b`` in the
+input dtype, a coefficient being 1 where its norm is 0. Kernel and twin
+reduce in different orders, so they agree to a tolerance, not to the bit
+(``chip_smoke.py`` states it).
 """
 
 from __future__ import annotations
@@ -33,25 +43,26 @@ INT8_QMAX = 127.0
 INT4_QMAX = 7.0
 
 _FLOATS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# C function -> (library of csrc/<library>.cu, argument types, result type)
 _SIGNATURES = {
-    "hvd_int8_quantize": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_void_p],
-    "hvd_int8_dequantize": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
-    "hvd_int8_quantize_pack": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
-    "hvd_int4_quantize_pack": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+    "hvd_int8_quantize": ("wire_quant", [_P, _I, _P, _P, _I64, _I, _P], _I),
+    "hvd_int8_dequantize": ("wire_quant", [_P, _P, _P, _I64, _I, _P], _I),
+    "hvd_int8_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
+    "hvd_int4_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
+    "hvd_adasum_combine": ("adasum", [_P, _I64, _P, _I64, _I, _P, _I64, _I64,
+                                      _P, _P], _I),
+    "hvd_adasum_scratch_floats": ("adasum", [_I64, _I64, _I], _I64),
 }
 
 
 def _kernel(name: str):
-    lib = _build.load("wire_quant")
+    library, argtypes, restype = _SIGNATURES[name]
+    lib = _build.load(library)
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = restype
         lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hvd_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
@@ -66,14 +77,21 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
 
 
-def _check_2d(t: torch.Tensor, what: str, dtypes) -> None:
+def _check_2d(t: torch.Tensor, what: str, dtypes,
+              strided_rows: bool = False) -> None:
+    """``strided_rows``: rows may lie at any stride; only the elements of
+    a row must be contiguous."""
     if not isinstance(t, torch.Tensor) or t.dim() != 2:
         raise ValueError(f"{what}: expected a 2-D tensor, got "
                          f"{getattr(t, 'shape', type(t))}")
     if t.dtype not in dtypes:
         raise TypeError(f"{what}: dtype {t.dtype} not in "
                         f"{sorted(str(d) for d in dtypes)}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{what}: the elements of a row must be "
+                             f"contiguous (strides {t.stride()})")
+    elif not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {t.device}")
@@ -122,6 +140,23 @@ def int4_quantize_pack_2d_plain(x2):
     half = x2.shape[1] // 2
     b = (q[:, :half] & 15) | (q[:, half:] << 4)
     return torch.cat([b, _scale_bytes(scale)], dim=1)
+
+
+def adasum_combine_pairs_plain(a, b):
+    """[m, n] x 2 float -> [m, n] in the input dtype: pair ``i`` combines
+    ``a[i]`` with ``b[i]``; the zero-norm guard of the reference executor's
+    combine (a coefficient is 1 where its norm is 0)."""
+    af, bf = a.float(), b.float()
+    dot = torch.sum(af * bf, dim=1, keepdim=True)
+
+    def coef(norm):
+        one = torch.ones_like(norm)
+        safe = torch.where(norm == 0, one, norm)
+        return torch.where(norm == 0, one, 1.0 - dot / (2.0 * safe))
+
+    ac = coef(torch.sum(af * af, dim=1, keepdim=True))
+    bc = coef(torch.sum(bf * bf, dim=1, keepdim=True))
+    return (ac * af + bc * bf).to(a.dtype)
 
 
 # -------------------------------------------------------------- wrappers
@@ -196,8 +231,38 @@ def int4_quantize_pack_2d(x2):
     return p
 
 
+def adasum_combine_pairs(a, b):
+    """[m, n] x 2 f32/bf16/f16 -> [m, n] in the input dtype: pair ``i``
+    combines ``a[i]`` with ``b[i]``. Replaces
+    ``pallas_kernels.adasum_combine_pairs``; unlike it, any ``n`` is taken
+    (no lane alignment, so nothing is padded). Rows may be strided views
+    (``buf[0::2]``, ``buf[1::2]`` of a tree level): only the elements of a
+    row must be contiguous. One launch per call, two CUDA kernels (reduce,
+    then apply)."""
+    _check_2d(a, "adasum_combine_pairs a", _FLOATS, strided_rows=True)
+    _check_2d(b, "adasum_combine_pairs b", _FLOATS, strided_rows=True)
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"adasum_combine_pairs: a {tuple(a.shape)} "
+                         f"{a.dtype} on {a.device} does not match b "
+                         f"{tuple(b.shape)} {b.dtype} on {b.device}")
+    m, n = a.shape
+    if a.device.type == "cpu":
+        return adasum_combine_pairs_plain(a, b)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m and n:
+        dt = _FLOATS[a.dtype]
+        scratch = torch.empty(
+            (_kernel("hvd_adasum_scratch_floats")[1](m, n, dt),),
+            dtype=torch.float32, device=a.device)
+        _launch("hvd_adasum_combine", a.device, a.data_ptr(), a.stride(0),
+                b.data_ptr(), b.stride(0), dt, out.data_ptr(), m, n,
+                scratch.data_ptr())
+        adasum_combine_pairs.launches += 1
+    return out
+
+
 WRAPPERS = (int8_quantize_2d, int8_dequantize_2d, int8_quantize_pack_2d,
-            int4_quantize_pack_2d)
+            int4_quantize_pack_2d, adasum_combine_pairs)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -1,11 +1,13 @@
 """DistributedOptimizer: a ``torch.optim.Optimizer`` wrapper whose
 ``step()`` averages gradients across ranks first (the surface of
 ``horovod_tpu/torch/__init__.py``'s ``DistributedOptimizer``, with the
-error feedback of ``horovod_tpu/optim/distributed.py``).
+error feedback of ``horovod_tpu/optim/distributed.py``), or, with
+``op=Adasum``, combines the local updates (the delta flow of the same
+file's ``_DistributedAdasumOptimizer``).
 
 Gradients are allreduced synchronously in ``synchronize()`` (which ``step()``
-calls) and stay on the device. The async per-parameter hooks of the
-reference arrive with the eager engine in a later slice.
+calls) and stay on the device. The async per-parameter allreduce hooks of
+the reference arrive with the eager engine in a later slice.
 """
 
 from __future__ import annotations
@@ -99,23 +101,126 @@ class _DistributedOptimizer:
         return getattr(self._opt, item)
 
 
+class _DistributedAdasumOptimizer:
+    """Delta-flow Adasum: once a parameter's gradient has accumulated
+    ``backward_passes_per_step`` times, a hook runs the inner optimizer on
+    that parameter alone, keeps the local update ``delta = p_after -
+    p_before`` (compressed) and restores ``p``; ``step()`` combines every
+    delta across ranks with ``op=Adasum`` and adds the result to ``p``.
+    The inner optimizer's state (momentum, ...) advances from the local
+    step and stays rank-local.
+
+    The hooks compute only; every allreduce runs in ``step()``, in
+    ``named_parameters`` order, so ranks whose backward fires hooks in
+    another order, or whose loss leaves a parameter unused, still run the
+    same collectives in the same order.
+    """
+
+    def __init__(self, optimizer, named_parameters=None,
+                 compression=Compression.none,
+                 backward_passes_per_step: int = 1):
+        self._opt = optimizer
+        self._compression = compression
+        self.backward_passes_per_step = backward_passes_per_step
+        self._named = _named(optimizer, named_parameters)
+        self._counts: Dict[str, int] = {}
+        self._deltas: Dict[str, tuple] = {}
+        for name, p in self._named:
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(self._hook(name))
+
+    def _hook(self, name: str):
+        def hook(p):
+            self._counts[name] = self._counts.get(name, 0) + 1
+            if self._counts[name] == self.backward_passes_per_step:
+                self._counts[name] = 0
+                self._local_delta(name, p)
+        return hook
+
+    def _local_delta(self, name: str, p: torch.Tensor) -> None:
+        """Run the inner optimizer on ``p`` alone (the other parameters are
+        hidden from its groups for the call), keep the compressed delta and
+        restore ``p``."""
+        start = p.detach().clone()
+        groups = self._opt.param_groups
+        stash = [g["params"] for g in groups]
+        try:
+            for g in groups:
+                g["params"] = [v for v in g["params"] if v is p]
+            self._opt.step()
+        finally:
+            for g, params in zip(groups, stash):
+                g["params"] = params
+        with torch.no_grad():
+            delta = p.detach() - start
+            p.copy_(start)
+        self._deltas[name] = self._compression.compress(delta)
+
+    def synchronize(self) -> None:
+        """A no-op: the deltas are combined in ``step()``."""
+
+    def skip_synchronize(self):
+        raise AssertionError("Skipping synchronization is not supported "
+                             "when using Adasum optimizer.")
+
+    def step(self, closure=None):
+        """Compute the delta of every hooked parameter that has none yet
+        (zero when it has no gradient), Adasum-combine every delta across
+        ranks and apply it."""
+        loss = closure() if closure is not None else None
+        for name, p in self._named:
+            if p.requires_grad and name not in self._deltas:
+                self._counts[name] = 0
+                self._local_delta(name, p)
+        with torch.no_grad():
+            for name, p in self._named:
+                if name not in self._deltas:
+                    continue
+                comp, ctx = self._deltas.pop(name)
+                combined = ops.allreduce(comp, op=Adasum,
+                                         name=f"adasum.{name}")
+                p.add_(self._compression.decompress(combined, ctx).to(p.dtype))
+        return loss
+
+    def zero_grad(self, *args, **kwargs):
+        if self._deltas:
+            raise AssertionError(
+                "optimizer.zero_grad() was called after loss.backward() but "
+                "before optimizer.step()")
+        return self._opt.zero_grad(*args, **kwargs)
+
+    def __getattr__(self, item):
+        return getattr(self._opt, item)
+
+
 def DistributedOptimizer(optimizer, named_parameters=None,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
                          op: int = Average, error_feedback: bool = False):
     """Wrap ``optimizer`` so that ``step()`` first averages (``op=Average``)
-    or sums (``op=Sum``) every gradient across ranks.
+    or sums (``op=Sum``) every gradient across ranks, or, with
+    ``op=Adasum`` at a world size above 1, so that it combines the local
+    updates across ranks (the delta flow; a power-of-2 world). At world
+    size 1 ``op=Adasum`` is the plain inner step.
 
-    ``compression``: ``Compression.none/fp16/bf16/int8/int4``.
-    ``error_feedback=True`` (for a lossy compression): each step sends
-    ``grad + residual`` and keeps as the new residual what the wire dropped,
-    ``corrected - compression.roundtrip(corrected)``; the residual is
-    rank-local and stays on the device. ``backward_passes_per_step``: the
-    number of backward passes accumulated into ``.grad`` per step (the raw
-    accumulated sum goes on the wire, as in the reference).
+    ``compression``: ``Compression.none/fp16/bf16/int8/int4``; under Adasum
+    the fp16/bf16 casts compose and int8/int4 ride the exact wire.
+    ``error_feedback=True`` (for a lossy compression, not with Adasum): each
+    step sends ``grad + residual`` and keeps as the new residual what the
+    wire dropped, ``corrected - compression.roundtrip(corrected)``; the
+    residual is rank-local and stays on the device.
+    ``backward_passes_per_step``: the number of backward passes accumulated
+    into ``.grad`` per step (the raw accumulated sum goes on the wire, as in
+    the reference); under Adasum, the number after which a parameter's
+    local update is taken.
     """
-    if op == Adasum:
-        raise NotImplementedError(
-            "op=Adasum (the delta-flow optimizer) is not ported yet")
+    if op == Adasum and error_feedback:
+        raise ValueError(
+            "error_feedback is not supported with op=Adasum (the "
+            "delta-flow optimizer communicates updates, not gradients)")
+    if op == Adasum and basics.size() > 1:
+        return _DistributedAdasumOptimizer(optimizer, named_parameters,
+                                           compression,
+                                           backward_passes_per_step)
     return _DistributedOptimizer(optimizer, named_parameters, compression,
                                  backward_passes_per_step, op, error_feedback)

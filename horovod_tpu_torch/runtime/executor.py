@@ -1,6 +1,7 @@
 """Data-plane programs of the allreduce (subset of
-``horovod_tpu/runtime/executor.py``): the exact wire, and the block-quantized
-int8 / int4 wire with its bypass rules and byte accounting.
+``horovod_tpu/runtime/executor.py``): the exact wire, the block-quantized
+int8 / int4 wire with its bypass rules and byte accounting, and the Adasum
+combine tree.
 
 The quantized allreduce is the reference's ``_allreduce_q_fn``: pad the f32
 row to ``world`` chunks of whole blocks, quantize, all-to-all (the
@@ -19,8 +20,16 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
+from ..exceptions import HorovodInternalError
 from ..ops import compression as comp
 from ..ops import cuda_kernels as ck
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``like``'s dtype, as a 0-d CPU tensor: a scale
+    factor multiplies in the tensor's own dtype, as ``np.asarray(value,
+    dtype)`` does in the reference."""
+    return torch.tensor(value, dtype=like.dtype)
 
 
 def _collective(kind: str, t: torch.Tensor, backend: Optional[str],
@@ -112,26 +121,58 @@ class Executor:
             self.last_wire_bytes = 2 * length * dtype.itemsize
 
     def allreduce(self, tensor: torch.Tensor, average: bool,
-                  wire: Optional[str] = None) -> torch.Tensor:
+                  wire: Optional[str] = None, prescale: float = 1.0,
+                  postscale: float = 1.0) -> torch.Tensor:
         """Sum (or average) ``tensor`` over all ranks; the result has the
-        input's shape, dtype and device."""
+        input's shape, dtype and device. ``prescale`` multiplies each rank's
+        contribution before the sum, ``postscale`` the result after the
+        average: in the tensor's dtype on the exact wire, in f32 on the
+        quantized one, as the reference's programs do."""
         length = tensor.numel()
         mode = self.effective_wire(wire, tensor.dtype, length)
         self._record_wire(mode, length, tensor.dtype)
         if self._world == 1:
-            return tensor.clone()
+            f = prescale * postscale
+            return tensor.clone() if f == 1.0 else tensor * _scalar(f, tensor)
         flat = tensor.reshape(-1)
         if mode:
-            out = self._quantized_sum(flat.float(), bits=4 if mode == "int4"
-                                      else 8)
+            x = flat.float()
+            if prescale != 1.0:
+                x = x * _scalar(prescale, x)
+            out = self._quantized_sum(x, bits=4 if mode == "int4" else 8)
             if average:
                 out = out / self._world
         else:
+            if prescale != 1.0:
+                flat = flat * _scalar(prescale, flat)
             out = _collective("all_reduce", flat, self._backend, self._world)
             if average:
                 out = (out // self._world if not out.dtype.is_floating_point
                        else out / self._world)
+        if postscale != 1.0:
+            out = out * _scalar(postscale, out)
         return out.to(tensor.dtype).reshape(tensor.shape)
+
+    def adasum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Adasum combine of ``tensor`` (f32, bf16 or f16) over all ranks,
+        the reference's ``_adasum_fn``: all-gather the flat rows into
+        ``[world, n]``, then combine pairs ``(2i, 2i+1)`` level by level, one
+        ``adasum_combine_pairs`` launch per level, each level cast back to
+        the input dtype. Every rank gets the root. The wire is the exact
+        one (quantized wires are bypassed)."""
+        world = self._world
+        if world & (world - 1):
+            raise HorovodInternalError(
+                f"Adasum requires a power-of-2 number of ranks; got {world}.")
+        length = tensor.numel()
+        self._record_wire("", length, tensor.dtype)
+        if world == 1:
+            return tensor.clone()
+        buf = _collective("all_gather", tensor.reshape(1, -1), self._backend,
+                          world)
+        while buf.shape[0] > 1:
+            buf = ck.adasum_combine_pairs(buf[0::2], buf[1::2])
+        return buf[0].reshape(tensor.shape)
 
     def _quantized_sum(self, x: torch.Tensor, bits: int) -> torch.Tensor:
         """Quantized allreduce (sum) of the flat f32 ``x``: the reference's

@@ -87,3 +87,47 @@ def run_cluster(fn: Callable, np: int = 2, device: str = "cuda",
                     p.join(timeout=10)
             results.close()
     return [got[r] for r in range(np)]
+
+
+def numpy_adasum_pair(a, b):
+    """The Adasum combine of two numpy vectors in float64 (the numpy oracle
+    of the reference's tests, ``tests/tests_adasum_ref.py``, kept here so
+    that the port needs nothing of the reference)."""
+    import numpy
+
+    dot = float(numpy.dot(a.ravel(), b.ravel()))
+    na = float(numpy.dot(a.ravel(), a.ravel()))
+    nb = float(numpy.dot(b.ravel(), b.ravel()))
+    ac = 1.0 if na == 0 else 1.0 - dot / (2 * na)
+    bc = 1.0 if nb == 0 else 1.0 - dot / (2 * nb)
+    return ac * a + bc * b
+
+
+def numpy_adasum(bufs):
+    """Root of the pairwise tree over ``bufs`` (a power-of-2 count)."""
+    while len(bufs) > 1:
+        bufs = [numpy_adasum_pair(bufs[i], bufs[i + 1])
+                for i in range(0, len(bufs), 2)]
+    return bufs[0]
+
+
+def adasum_dryrun_worker():
+    """One rank of the Adasum check (BASELINE tracked config 5; the
+    reference's ``testing.adasum_dryrun_worker``): an eager Adasum
+    allreduce of 257 f32 values from ``RandomState(7 + rank)``, once plain
+    and once through ``Compression.fp16``. Returns ``(rank, input,
+    plain result, fp16 result)`` as lists."""
+    import numpy
+    import torch
+
+    from . import basics
+    from .ops import collective_ops as C
+    from .ops.compression import Compression
+
+    r = basics.rank()
+    x = numpy.random.RandomState(7 + r).randn(257).astype(numpy.float32)
+    t = torch.from_numpy(x).to(basics.device())
+    plain = C.allreduce(t, name="adsm", op=basics.Adasum)
+    comp = C.allreduce(t, name="adsm16", op=basics.Adasum,
+                       compression=Compression.fp16)
+    return (r, x.tolist(), plain.cpu().tolist(), comp.cpu().tolist())

@@ -4,9 +4,10 @@ reference's ``bench.py``).
 Synthetic ImageNet-shaped images from ``RandomState(0)`` and labels from
 ``RandomState(1)`` form a global batch of ``batch * size()`` samples; rank r
 trains on its ``batch``-sized shard. SGD (lr 0.01, momentum 0.9) is wrapped
-in :func:`DistributedOptimizer`; the loss is softmax cross-entropy. On the
-card the forward runs under bf16 autocast with f32 parameters, in
-channels_last.
+in :func:`DistributedOptimizer`, which averages the gradients
+(``op="average"``) or Adasum-combines the local updates (``op="adasum"``);
+the loss is softmax cross-entropy. On the card the forward runs under bf16
+autocast with f32 parameters, in channels_last.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import basics
+from .basics import Adasum, Average
 from .models import resnet
 from .ops import compression as comp
 from .ops import cuda_kernels as ck
@@ -51,24 +53,39 @@ def synthetic_batch(batch: int, image: int, num_classes: int, rank: int,
 
 def synthetic_train(model: str = "ResNet50", batch: int = 32,
                     image: int = 224, steps: int = 5, warmup: int = 2,
-                    compression="int8", error_feedback: bool = True,
+                    compression=None, error_feedback: bool = True,
                     device: Optional[str] = None, num_classes: int = 1000,
-                    seed: int = 0) -> dict:
+                    seed: int = 0, op: str = "average",
+                    num_filters: int = 64) -> dict:
     """Train ``model`` for ``warmup + steps`` steps on synthetic data.
 
+    ``num_filters``: the model's width (64 is the published one).
+    ``op``: ``"average"`` (gradients averaged; ``compression`` defaults to
+    ``"int8"``) or ``"adasum"`` (the delta flow; ``compression`` is
+    ``"none"``, its default, or ``"fp16"``, and error feedback is off).
     Initializes the framework on ``device`` if it is not initialized yet.
     Returns ``losses`` (every step's), ``images_per_sec`` (this rank, timed
     steps only), ``launches`` (kernel launches of this call, per wrapper),
     ``device``, ``peak_memory_bytes`` (CUDA only, else None) and
     ``params_sha256``.
     """
+    if op not in ("average", "adasum"):
+        raise ValueError(f"op {op!r}: expected 'average' or 'adasum'")
+    if compression is None:
+        compression = "int8" if op == "average" else "none"
+    compressor = (comp.by_name(compression) if isinstance(compression, str)
+                  else compression)
+    if op == "adasum":
+        if compressor not in (comp.NoneCompressor, comp.FP16Compressor):
+            raise ValueError(f"op='adasum' takes compression 'none' or "
+                             f"'fp16', not {compression!r}")
+        error_feedback = False
     basics.init(device=device)
     dev = basics.device()
     rank, world = basics.rank(), basics.size()
     on_cuda = dev.type == "cuda"
-    compressor = (comp.by_name(compression) if isinstance(compression, str)
-                  else compression)
-    net = getattr(resnet, model)(num_classes=num_classes, seed=seed).to(dev)
+    net = getattr(resnet, model)(num_classes=num_classes, seed=seed,
+                                 num_filters=num_filters).to(dev)
     if on_cuda:
         net = net.to(memory_format=torch.channels_last)
     broadcast_parameters(net.state_dict(), root_rank=0)
@@ -78,6 +95,7 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
     opt = DistributedOptimizer(
         torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9),
         named_parameters=net.named_parameters(), compression=compressor,
+        op=Adasum if op == "adasum" else Average,
         error_feedback=error_feedback)
 
     def step():
@@ -109,6 +127,7 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
         "images_per_sec": batch * steps / elapsed if steps else None,
         "launches": {k: after[k] - before[k] for k in after},
         "device": str(dev),
+        "op": op,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if on_cuda else None),
         "params_sha256": params_sha256(net),

@@ -238,7 +238,8 @@ def test_import_hygiene_no_jax_no_reference():
     """A fresh interpreter importing the port (and its trainer) loads no
     jax and no module of the reference package; the sources say so too."""
     code = ("import json, sys; import horovod_tpu_torch, "
-            "horovod_tpu_torch.train, horovod_tpu_torch.testing; "
+            "horovod_tpu_torch.train, horovod_tpu_torch.testing, "
+            "horovod_tpu_torch.spmd; "
             "print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,

@@ -1,4 +1,5 @@
-"""The port's main path as a whole, at world size 1: a reduced ResNet-50
+"""The port's main path as a whole, at world size 1 (and, at the end, the
+routing and a two-rank run of ``op=Adasum``): a reduced ResNet-50
 trained for 3 steps through ``DistributedOptimizer(SGD(lr=0.01,
 momentum=0.9), compression=int8, error_feedback=True)`` against the
 reference's ``hvd.DistributedOptimizer(optax.sgd(0.01, momentum=0.9),
@@ -41,7 +42,7 @@ import torch.nn.functional as F
 import horovod_tpu as ref_hvd
 from horovod_tpu.models import resnet as ref_resnet
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch import basics
+from horovod_tpu_torch import basics, testing
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.convert import resnet_state_dict_from_flax
 from horovod_tpu_torch.ops import compression as comp
@@ -206,11 +207,39 @@ def test_init_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
         hvd.rank()
 
 
+def adasum_routing_worker():
+    """One rank: the class ``DistributedOptimizer(op=Adasum)`` returns."""
+    return type(hvd.DistributedOptimizer(torch.optim.SGD(
+        [torch.nn.Parameter(torch.zeros(2))], lr=0.1),
+        op=basics.Adasum)).__name__
+
+
 def test_adasum_is_refused_until_ported():
+    """``op=Adasum``, once refused, now routes as the reference does: the
+    plain wrapper at world size 1, the delta-flow optimizer above it."""
     hvd.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.DistributedOptimizer(torch.optim.SGD([torch.nn.Parameter(
-            torch.zeros(2))], lr=0.1), op=basics.Adasum)
+    assert adasum_routing_worker() == "_DistributedOptimizer"
+    hvd.shutdown()
+    assert testing.run_cluster(adasum_routing_worker, np=2, device="cpu",
+                               timeout=300) == [
+        "_DistributedAdasumOptimizer"] * 2
+
+
+def test_synthetic_train_adasum_on_two_ranks():
+    """``synthetic_train(op="adasum")`` on 2 gloo ranks: the delta flow
+    leaves the parameters bit-identical on both ranks; error feedback is
+    off and the quantized compressions are refused."""
+    res = testing.run_cluster(synthetic_train, np=2, device="cpu",
+                              kwargs=dict(model="ResNet18", batch=2, image=32,
+                                          steps=1, warmup=1, op="adasum",
+                                          num_classes=10, num_filters=8),
+                              timeout=300)
+    assert res[0]["params_sha256"] == res[1]["params_sha256"]
+    assert all(r["op"] == "adasum" and np.isfinite(r["losses"]).all()
+               for r in res)
+    with pytest.raises(ValueError, match="'none' or 'fp16'"):
+        synthetic_train("ResNet18", op="adasum", compression="int8",
+                        device="cpu")
 
 
 def test_synthetic_train_on_the_cpu():
