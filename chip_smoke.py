@@ -2,9 +2,9 @@
 """Drive horovod_tpu_torch on one NVIDIA GPU (an H100) and check it.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu`` and
-``adasum.cu``, one ``nvcc`` each, both at once, into
-``build/torch_kernels/``), then:
+CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
+``flash_attention.cu``, ``layer_norm.cu`` and ``adamw.cu``, one ``nvcc``
+each, all at once, into ``build/torch_kernels/``), then:
 
 1. holds each wire kernel against its plain-PyTorch twin on the card, byte
    for byte, at the main-path shape (the flat ResNet-50 gradient as
@@ -32,7 +32,24 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu`` and
    numpy oracle;
 4b. trains a ResNet-18 of width 8 at world size 4 (32x32, batch 4 per
    rank, 2 steps of Adasum: a two-level tree) and checks bit-identical
-   parameters on all four ranks.
+   parameters on all four ranks;
+5. holds the LM kernels against their twins on the card, to the stated
+   tolerances: flash attention forward K5 and backward K7 (bf16 and f32,
+   causal or not, head dims 32/64/128, T = 1000, BH = 1, offsets, the
+   strided q/k/v views of the model's qkv projection; K7 also with f32
+   outputs, and two K7 launches byte-equal), LayerNorm K8 ([8192, 1024]
+   bf16 and ragged widths) and AdamW K9 (the 292 leaves of GPT-2-medium and
+   odd lengths, mu in bf16 and f32, steps 1 and 10); and times kernel,
+   twin and the one PyTorch call that computes the same function;
+5b. trains GPT-2-medium (24 layers, d_model 1024, 16 heads, vocab 32768,
+   seq 1024, batch 8, bf16) at world size 1 for 2 warm-up and 5 timed
+   steps, in the default configuration (K5, K7) and with the fused
+   LayerNorm and AdamW (K5, K7, K8, K9), checks the launches per step, and
+   profiles two steps;
+5c. checks a 2-layer LM trained on the card against the same training on
+   the CPU;
+5d. trains the medium widths at 2 layers on world size 2 (two gloo
+   processes sharing the card) and checks bit-identical parameters.
 
 Exits non-zero, with no result line, when a phase fails or no CUDA device
 is present. The last line of standard output is
@@ -53,7 +70,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 BLOCK = 256
-LIBRARIES = ("wire_quant", "adasum")
+LIBRARIES = ("wire_quant", "adasum", "flash_attention", "layer_norm", "adamw")
 SOURCE = "horovod_tpu_torch/csrc/wire_quant.cu"
 ADASUM_SOURCE = "horovod_tpu_torch/csrc/adasum.cu"
 REPLACES = {
@@ -62,6 +79,18 @@ REPLACES = {
     "int8_quantize_pack_2d": "horovod_tpu/ops/pallas_kernels.py:1637",
     "int4_quantize_pack_2d": "horovod_tpu/ops/pallas_kernels.py:1728",
     "adasum_combine_pairs": "horovod_tpu/ops/pallas_kernels.py:1366",
+    "flash_attention_fwd": "horovod_tpu/ops/pallas_kernels.py:339",
+    "flash_attention_bwd": "horovod_tpu/ops/pallas_kernels.py:923",
+    "layer_norm_fwd": "horovod_tpu/ops/pallas_kernels.py:1489",
+    "adamw_update": "horovod_tpu/optim/fused.py:86",
+}
+WIRE = ("int8_quantize_2d", "int8_dequantize_2d", "int8_quantize_pack_2d",
+        "int4_quantize_pack_2d")
+LM_SOURCES = {
+    "flash_attention_fwd": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "layer_norm_fwd": "horovod_tpu_torch/csrc/layer_norm.cu",
+    "adamw_update": "horovod_tpu_torch/csrc/adamw.cu",
 }
 RESNET50_LEAVES = 161  # gradient leaves of ResNet-50
 ADASUM_N = 2359296     # the largest ResNet-50 leaf (a layer4 3x3 conv)
@@ -154,8 +183,7 @@ def phase_kernels(rate: float) -> dict:
     rows = resnet50_gradient_rows()
     shapes = [(rows, BLOCK, torch.float32), (1, BLOCK, torch.float32),
               (5, 100, torch.float32), (64, BLOCK, torch.bfloat16)]
-    checks = {name: [] for name in REPLACES
-              if name != "adasum_combine_pairs"}
+    checks = {name: [] for name in WIRE}
     for r, b, dt in shapes:
         x = gradient_like(r, b, gen, dt)
         q, s = ck.int8_quantize_2d(x)
@@ -379,6 +407,520 @@ def adasum_device_ms(a, b, iters: int):
     return total / iters if total else None
 
 
+# --------------------------------------------------------------- phase 5
+# Tolerances of the LM kernels against their twins on the card, and why.
+# Kernel and twin sum in different orders, and the attention kernel takes
+# exp2 of base-2 logits where the twin takes exp; p rounds to bf16 against
+# a running maximum in the kernel and against the row's in the twin.
+# * K5 out: |k - t| <= ATTN_OUT_TOL[dtype] * the largest |k| or |t| of the
+#   (b, t, h) row: the machine epsilon for bf16 (one unit in the last place
+#   at the row's largest magnitude, at least: the f32 results differ by a
+#   fraction of a unit, and their two roundings to bf16 by one), 1e-5 for
+#   f32 (order of ~1000-term f32 sums).
+# * K5 lse: |k - t| <= 1e-5 (|t| + 1).
+# * K7 dq, dk, dv: |k - t| <= ATTN_GRAD_TOL[dtype] * max |t| of the tensor:
+#   2^-6 in bf16 (dS rounds to bf16 before two products), 1e-4 in f32.
+# * K8 y: |k - t| <= eps(dtype) max(|k|, |t|) + 1e-6 max |t| of the row
+#   (one unit in the last place of y, plus the order of the two f32 sums);
+#   mean:
+#   |k - t| <= 2e-6 max |x| of the row; rstd: 4e-6 relative (1 / sqrt
+#   against the twin's rsqrt, and the order of the squared-deviation sum).
+# * K9 p', mu', nu': at most one unit in the last place of their dtype (the
+#   kernel rounds every operation as the twin's separate operations do).
+ATTN_OUT_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+ATTN_LSE_TOL = 1e-5
+ATTN_GRAD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+LN_EPS = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+          torch.float32: 2.0 ** -23}
+LN_MEAN_TOL, LN_RSTD_TOL = 2e-6, 4e-6
+BF16_RATE = 989.4e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
+MEDIUM = dict(vocab=32768, layers=24, d=1024, heads=16, seq=1024, batch=8)
+
+
+def lm_leaf_shapes(vocab, layers, d, seq):
+    """Parameter shapes of the transformer LM, in the model's order."""
+    shapes = [(vocab, d), (seq, d)]
+    for _ in range(layers):
+        shapes += [(d,), (d,), (3 * d, d), (3 * d,), (d, d), (d,), (d,),
+                   (d,), (4 * d, d), (4 * d,), (d, 4 * d), (d,)]
+    return shapes + [(d,), (d,)]
+
+
+def causal_pairs(tq, tk, q_off, k_off, causal):
+    """(query, key) pairs the mask leaves visible."""
+    if not causal:
+        return tq * tk
+    return sum(max(0, min(tk, q_off + i - k_off + 1)) for i in range(tq))
+
+
+def ratio_rows(k, t, rel, dim=-1):
+    """(max |k - t|, max of |k - t| / (rel * the largest |k| or |t| over
+    ``dim``, or over the whole tensor for None))."""
+    kd, td = k.double(), t.double()
+    diff = (kd - td).abs()
+    mag = torch.maximum(kd.abs(), td.abs())
+    scale = mag.amax(dim, keepdim=True) if dim is not None else mag.max()
+    return float(diff.max()), float((diff / (rel * scale + 1e-300)).max())
+
+
+def ulp_distance(a, b) -> int:
+    """Largest distance in units of the last place between a and b."""
+    bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    top = 1 << (8 * a.element_size() - 1)
+
+    def key(x):
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i + top), i)
+
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def device_ms(fn, iters: int, match) -> float:
+    """Device time of one call (ms): torch.profiler over ``iters`` calls,
+    kernels whose name contains any of ``match``; None without a trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = _device_ms(prof)
+    total = sum(v for k, v in dev.items() if any(m in k for m in match))
+    return total / iters if total else None
+
+
+def attention_cases(gen):
+    """(name, q, k, v, dout, causal, q_off, k_off) on the card."""
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    b, t, h = MEDIUM["batch"], MEDIUM["seq"], MEDIUM["heads"]
+    hd = MEDIUM["d"] // h
+    qkv = rnd(b, t, h, 3, hd)  # the views the model's qkv projection gives
+    cases = [("main [8,1024,16,64] bf16 causal, qkv views", qkv[..., 0, :],
+              qkv[..., 1, :], qkv[..., 2, :], rnd(b, t, h, hd), True, 0, 0)]
+    for name, shape, dt, causal in (
+            ("non-causal bf16", (2, 512, 4, 64), torch.bfloat16, False),
+            ("f32 causal", (2, 256, 2, 64), torch.float32, True),
+            ("f32 D=128 non-causal", (1, 384, 2, 128), torch.float32, False),
+            ("bf16 D=128 causal", (2, 256, 2, 128), torch.bfloat16, True),
+            ("T=1000 bf16 causal", (2, 1000, 2, 64), torch.bfloat16, True),
+            ("T=1000 f32 non-causal", (1, 1000, 2, 64), torch.float32,
+             False),
+            ("BH=1 f32 causal", (1, 512, 1, 64), torch.float32, True),
+            ("D=32 bf16 causal", (2, 192, 2, 32), torch.bfloat16, True)):
+        cases.append((name, rnd(*shape, dtype=dt), rnd(*shape, dtype=dt),
+                      rnd(*shape, dtype=dt), rnd(*shape, dtype=dt), causal,
+                      0, 0))
+    # offsets (the ring's hops): q rows 256.. against keys 0..511, and keys
+    # that start past the first q rows (fully masked rows: out 0, lse 0),
+    # on both paths (f32: CUDA cores; bf16: tensor cores)
+    for dt in (torch.float32, torch.bfloat16):
+        q, kk = rnd(1, 256, 2, 64, dtype=dt), rnd(1, 512, 2, 64, dtype=dt)
+        cases.append((f"offsets q_off=256 {dt}", q, kk, kk.flip(1),
+                      q.flip(2), True, 256, 0))
+        cases.append((f"offsets k_off=128, masked rows {dt}", q, kk,
+                      kk.flip(1), q.flip(2), True, 0, 128))
+    return cases
+
+
+def phase_lm_kernels(rate: float) -> dict:
+    """K5, K7, K8 and K9 against their twins on the card, at the main-path
+    shapes and at ragged ones; two K7 launches byte-equal; times."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checks, worst = [], {}
+
+    def note(kernel, what, ok, err, ratio):
+        checks.append((kernel, what, ok, err, ratio))
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        log(f"  {kernel} {what}: max |kernel - twin| {err:.3e} = "
+            f"{ratio:.3f} of its bound: ok={ok}")
+
+    # ---- K5 / K7
+    for name, q, k, v, do, causal, qo, ko in attention_cases(gen):
+        kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, q_off=qo,
+                  k_off=ko)
+        out, lse = ck.flash_attention_fwd(q, k, v, **kw)
+        out_t, lse_t = ck.flash_attention_fwd_plain(q, k, v, **kw)
+        e1, r1 = ratio_rows(out, out_t, ATTN_OUT_TOL[q.dtype])
+        e2 = float((lse - lse_t).abs().max())
+        r2 = float(((lse - lse_t).abs()
+                    / (ATTN_LSE_TOL * (lse_t.abs() + 1))).max())
+        ok = (r1 <= 1 and r2 <= 1 and out.dtype == q.dtype
+              and bool(torch.isfinite(out).all()))
+        if ko > qo:  # rows that see no key: out 0 and lse 0
+            hidden = ko - qo
+            ok = ok and not out[:, :hidden].any() and not lse[..., :hidden].any()
+        note("flash_attention_fwd", f"{name} out/lse", ok, max(e1, e2),
+             max(r1, r2))
+        dd = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        for out_dtype in ((q.dtype, torch.float32)
+                          if q.dtype != torch.float32 else (q.dtype,)):
+            g = ck.flash_attention_bwd(q, k, v, do, lse, dd,
+                                       out_dtype=out_dtype, **kw)
+            g2 = ck.flash_attention_bwd(q, k, v, do, lse, dd,
+                                        out_dtype=out_dtype, **kw)
+            gt = ck.flash_attention_bwd_plain(q, k, v, do, lse, dd,
+                                              out_dtype=out_dtype, **kw)
+            same = all(bits_equal(a, b) for a, b in zip(g, g2))
+            er = [ratio_rows(a, b, ATTN_GRAD_TOL[q.dtype], dim=None)
+                  for a, b in zip(g, gt)]
+            ok = (same and all(r <= 1 for _, r in er)
+                  and all(a.dtype == out_dtype for a in g))
+            note("flash_attention_bwd", f"{name} out {out_dtype} dq/dk/dv "
+                 f"(two launches byte-equal {same})", ok,
+                 max(e for e, _ in er), max(r for _, r in er))
+    torch.cuda.synchronize()
+
+    # ---- K8
+    for shape, dt in (((8192, 1024), torch.bfloat16),
+                      ((8192, 1000), torch.bfloat16),
+                      ((513, 1001), torch.float32),
+                      ((300, 768), torch.float16), ((4, 77), torch.bfloat16)):
+        n, d = shape
+        x = (torch.randn(n, d, generator=gen, device="cuda") * 3
+             + torch.rand(n, 1, generator=gen, device="cuda")).to(dt)
+        gm = torch.randn(d, generator=gen, device="cuda")
+        bt = torch.randn(d, generator=gen, device="cuda")
+        y, mu, rs = ck.layer_norm_fwd(x, gm, bt, 1e-6)
+        yt, mut, rst = ck.layer_norm_fwd_plain(x, gm, bt, 1e-6)
+        y2 = ck.layer_norm_fwd(x, gm, bt, 1e-6)[0]
+        yd, ytd = y.double(), yt.double()
+        bound = (LN_EPS[dt] * torch.maximum(yd.abs(), ytd.abs())
+                 + 1e-6 * ytd.abs().amax(1, keepdim=True))
+        ry = float(((yd - ytd).abs() / bound).max())
+        xmax = x.float().abs().amax(1)
+        rm = float(((mu - mut).abs() / (LN_MEAN_TOL * xmax)).max())
+        rr = float(((rs - rst).abs() / (LN_RSTD_TOL * rst.abs())).max())
+        ok = (max(ry, rm, rr) <= 1 and bits_equal(y, y2)
+              and y.dtype == dt)
+        note("layer_norm_fwd", f"[{n}, {d}] {dt}", ok,
+             float((yd - ytd).abs().max()), max(ry, rm, rr))
+
+    # ---- K9
+    shapes = lm_leaf_shapes(MEDIUM["vocab"], MEDIUM["layers"], MEDIUM["d"],
+                            MEDIUM["seq"])
+    adamw_timing = None
+    for leaves, label in ((shapes, f"{len(shapes)} medium leaves"),
+                          ([(1000003,), (3,)], "odd lengths")):
+        for mu_dtype in (torch.bfloat16, torch.float32):
+            for t in (1, 10):
+                ps = [torch.randn(s, generator=gen, device="cuda")
+                      for s in leaves]
+                gs = [torch.randn(s, generator=gen, device="cuda")
+                      for s in leaves]
+                mus = [(0.1 * torch.randn(s, generator=gen, device="cuda")
+                        ).to(mu_dtype) for s in leaves]
+                nus = [0.01 * torch.rand(s, generator=gen, device="cuda")
+                       for s in leaves]
+                b1, b2 = 0.9, 0.999
+                sc = dict(lr=float(torch.tensor(3e-4)),
+                          ibc1=float(1 / (1 - torch.tensor(b1) ** t)),
+                          ibc2=float(1 / (1 - torch.tensor(b2) ** t)),
+                          b1=b1, b2=b2, eps=1e-8)
+                twin = [[x.clone() for x in xs] for xs in (ps, mus, nus)]
+                ck.adamw_update(ps, gs, mus, nus, weight_decay=0.01, **sc)
+                for p, g, mu, nu in zip(*twin[:1], gs, *twin[1:]):
+                    ck.adamw_update_plain(p, g, mu, nu, wd=0.01, **sc)
+                d_ulp = max(max(ulp_distance(a, b) for a, b in zip(x, y))
+                            for x, y in zip((ps, mus, nus), twin))
+                err = max(float((a.float() - b.float()).abs().max())
+                          for x, y in zip((ps, mus, nus), twin)
+                          for a, b in zip(x, y))
+                note("adamw_update", f"{label} mu {mu_dtype} step {t} "
+                     f"(max {d_ulp} ulp)", d_ulp <= 1, err, float(d_ulp))
+                if (len(leaves) > 2 and mu_dtype == torch.bfloat16
+                        and t == 10):
+                    adamw_timing = (ps, gs, mus, nus, sc)
+                del ps, gs, mus, nus, twin
+    torch.cuda.synchronize()
+    failed = [c for c in checks if not c[2]]
+    log(f"phase 5: LM kernels against their twins on the card: "
+        f"{not failed} ({len(checks)} checks)")
+    if failed:
+        raise AssertionError(f"LM kernels disagree with their twins: "
+                             f"{failed}")
+
+    # ---- times at the main-path shapes
+    out = {}
+    name, q, k, v, do, causal, _, _ = attention_cases(gen)[0]
+    bsz, t, h, d = q.shape
+    pairs = causal_pairs(t, t, 0, 0, True) * bsz * h
+    attn = dict(causal=True, scale=d ** -0.5)
+    o, lse = ck.flash_attention_fwd(q, k, v, **attn)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sd = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2)
+    n_el = bsz * t * h * d
+    timed = {
+        "flash_attention_fwd": (
+            lambda: ck.flash_attention_fwd(q, k, v, **attn),
+            lambda: ck.flash_attention_fwd_plain(q, k, v, **attn),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True),
+            4 * n_el * 2 + bsz * h * t * 4, 4 * d * pairs, BF16_RATE,
+            ("flash_fwd",), "F.scaled_dot_product_attention(is_causal=True)"),
+        "flash_attention_bwd": (
+            lambda: ck.flash_attention_bwd(q, k, v, do, lse, dd, **attn),
+            lambda: ck.flash_attention_bwd_plain(q, k, v, do, lse, dd,
+                                                 **attn),
+            lambda: torch.autograd.grad(sd, (qs, ks, vs), dos,
+                                        retain_graph=True),
+            7 * n_el * 2 + 2 * bsz * h * t * 4, 10 * d * pairs, BF16_RATE,
+            ("flash_bwd",), "SDPA backward through autograd"),
+    }
+    x = torch.randn(8192, 1024, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    gm = torch.randn(1024, generator=gen, device="cuda")
+    bt = torch.randn(1024, generator=gen, device="cuda")
+    timed["layer_norm_fwd"] = (
+        lambda: ck.layer_norm_fwd(x, gm, bt, 1e-6),
+        lambda: ck.layer_norm_fwd_plain(x, gm, bt, 1e-6),
+        lambda: F.layer_norm(x, (1024,), gm.to(x.dtype), bt.to(x.dtype),
+                             1e-6),
+        2 * x.numel() * 2 + 2 * 1024 * 4 + 2 * 8192 * 4, 8 * x.numel(),
+        F32_RATE, ("ln_fwd",), "F.layer_norm")
+    ps, gs, mus, nus, sc = adamw_timing
+    n_par = sum(p.numel() for p in ps)
+    lib_ps = [p.clone() for p in ps]
+    for p, g in zip(lib_ps, gs):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_ps, lr=3e-4, weight_decay=0.01, fused=True)
+
+    def twin_step():
+        for p, g, mu, nu in zip(ps, gs, mus, nus):
+            ck.adamw_update_plain(p, g, mu, nu, wd=0.01, **sc)
+
+    timed["adamw_update"] = (
+        lambda: ck.adamw_update(ps, gs, mus, nus, weight_decay=0.01, **sc),
+        twin_step, lib.step, 24 * n_par, 12 * n_par, F32_RATE, ("adamw",),
+        "torch.optim.AdamW(fused=True).step(), f32 exp_avg: 26 B/element "
+        "against the kernel's 24")
+    for kname, (kern, plain, library, nbytes, ops, peak, match,
+                lib_name) in timed.items():
+        ms = cuda_ms(kern, 20)
+        bytes_ms = nbytes / rate * 1e3
+        ops_ms = ops / peak * 1e3
+        out[kname] = {
+            "name": kname, "route": "cuda", "source": LM_SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": 0,
+            "max_abs_err": worst[kname], "ms": ms,
+            "plain_ms": cuda_ms(plain, 5, warmup=1),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": cuda_ms(library, 10), "library": lib_name,
+            "device_ms": device_ms(kern, 10, match), "bytes": nbytes,
+            "operations": ops}
+        r = out[kname]
+        log(f"  {kname}: kernel {ms:.4f} ms (device {r['device_ms']}), "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+            f"ms ({lib_name}), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({nbytes} bytes, {ops} operations) on {CARD}")
+    # row #11's contract: the same backward with f32 outputs (not on the
+    # main path; no PyTorch call returns f32 gradients of bf16 attention)
+    nbytes = 4 * n_el * 2 + 2 * bsz * h * t * 4 + 3 * n_el * 4
+    ops = 10 * d * pairs
+
+    def f32_out():
+        return ck.flash_attention_bwd(q, k, v, do, lse, dd,
+                                      out_dtype=torch.float32, **attn)
+
+    r = out["flash_attention_bwd"]["f32_out"] = {
+        "ms": cuda_ms(f32_out, 20),
+        "device_ms": device_ms(f32_out, 10, ("flash_bwd",)),
+        "plain_ms": cuda_ms(lambda: ck.flash_attention_bwd_plain(
+            q, k, v, do, lse, dd, out_dtype=torch.float32, **attn), 5,
+            warmup=1),
+        "bound_ms": max(nbytes / rate, ops / BF16_RATE) * 1e3,
+        "bound_by": "bytes" if nbytes / rate >= ops / BF16_RATE
+        else "operations", "bytes": nbytes}
+    log(f"  flash_attention_bwd with f32 outputs: kernel {r['ms']:.4f} ms "
+        f"(device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} on {CARD}")
+    out["checks"] = checks
+    return out
+
+
+# -------------------------------------------------------- phases 5b-5d
+def lm_per_step(fused: bool, layers: int) -> dict:
+    """Kernel launches one training step of the LM makes: K5 and K7 once a
+    layer; with the fused path K8 twice a layer plus ln_f, and K9 once (one
+    multi-tensor launch over every leaf)."""
+    return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "layer_norm_fwd": (2 * layers + 1) if fused else 0,
+            "adamw_update": 1 if fused else 0}
+
+
+def phase_lm_world1() -> dict:
+    """GPT-2-medium (24 layers, d_model 1024, 16 heads, vocab 32768, seq
+    1024, batch 8) at world 1, 2 warm-up and 5 timed steps, in the default
+    configuration (K5, K7) and with fused_ln and fused_opt (all four)."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import synthetic_lm_train
+
+    steps, warmup = 5, 2
+    runs = {}
+    for label, fused in (("default", False), ("fused_ln+fused_opt", True)):
+        ck.reset_launch_counts()
+        res = synthetic_lm_train("medium", steps=steps, warmup=warmup,
+                                 fused_ln=fused, fused_opt=fused,
+                                 device="cuda:0")
+        counts = ck.launch_counts()
+        want = {k: (steps + warmup) * n
+                for k, n in lm_per_step(fused, MEDIUM["layers"]).items()}
+        ok = (all(math.isfinite(v) for v in res["losses"])
+              and res["gradient_leaves"] == len(lm_leaf_shapes(
+                  MEDIUM["vocab"], MEDIUM["layers"], MEDIUM["d"],
+                  MEDIUM["seq"]))
+              and all(counts[k] == n for k, n in want.items())
+              and res["chunked"] is False)
+        log(f"phase 5b: GPT-2-medium world 1 ({label}): "
+            f"{res['tokens_per_sec']:.1f} tokens/s, {res['step_ms']:.2f} ms "
+            f"per step, MFU {res['mfu_pct']:.2f}% of "
+            f"{res['peak_flops'] / 1e12:.1f} TFLOP/s, peak memory "
+            f"{res['peak_memory_bytes'] / 2**30:.2f} GiB, launches per step "
+            f"{ {k: counts[k] / (steps + warmup) for k in want} } "
+            f"(want {lm_per_step(fused, MEDIUM['layers'])}), losses "
+            f"{[round(v, 4) for v in res['losses']]}, "
+            f"{res['n_params']} parameters ({res['n_nonemb_params']} "
+            f"non-embedding), on {CARD}: ok={ok}")
+        if not ok:
+            raise AssertionError(f"GPT-2-medium world-1 run ({label}) "
+                                 f"failed its checks: {counts}")
+        res["counts"] = counts
+        runs[label] = res
+    return runs
+
+
+def phase_lm_profile() -> dict:
+    """Two profiled steps of GPT-2-medium on the fused path, after one warm
+    step: device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.train import LMTrainer
+
+    tr = LMTrainer("medium", fused_ln=True, fused_opt=True, device="cuda:0")
+    tr.step()
+    tr.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step()
+        tr.step()
+        tr.sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = _device_ms(prof)
+    total = sum(dev.values())
+    ours = {k: v for k, v in dev.items()
+            if any(m in k for m in ("flash_fwd", "flash_bwd", "ln_fwd",
+                                    "adamw_kernel"))}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    log(f"phase 5b': 2 profiled GPT-2-medium steps (fused path): "
+        f"{wall:.1f} ms wall (profiler on), device time {total:.1f} ms "
+        f"({100 * total / wall:.1f}% busy), of it the port's kernels "
+        f"{sum(ours.values()):.1f} ms; top device kernels (ms) "
+        f"{[(k[:70], round(v, 2)) for k, v in top]}; on {CARD}")
+    return {"wall_ms": wall, "device_ms_total": total,
+            "port_kernels_ms": ours, "top": top}
+
+
+def phase_lm_small_agreement() -> dict:
+    """A 2-layer, d_model 128 LM trained 3 steps (fused LayerNorm, fused
+    AdamW with a bf16 mu) in f32 on the card (kernels) and on the CPU
+    (plain twins), from the same weights and tokens, TF32 off. The
+    tolerance of the CPU tests against the reference: losses to 1e-5
+    relative, 99.9% of the parameter elements to 2e-6, all to 1e-4 (Adam
+    turns a last-bit gradient difference on an element as small as eps into
+    a visible share of that element's step)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.optim.fused import FusedAdamW
+    from horovod_tpu_torch.train import synthetic_lm_tokens
+
+    toks = torch.from_numpy(synthetic_lm_tokens(4, 128, 512, 0, 1))
+    runs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            net = TransformerLM(512, num_layers=2, num_heads=2, d_model=128,
+                                max_seq_len=128, dtype=torch.float32,
+                                fused_ln=True, seed=3).to(dev)
+            opt = FusedAdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
+                             mu_dtype="bf16")
+            x, y = toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+            losses = []
+            for _ in range(3):
+                opt.zero_grad()
+                loss = lm_loss(net(x), y)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            runs[dev] = (losses, {k: p.detach().cpu() for k, p in
+                                  net.named_parameters()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    diffs = torch.cat([(pc[k] - pg[k]).abs().flatten() for k in pc])
+    worst, share = float(diffs.max()), float((diffs <= 2e-6).float().mean())
+    ok = loss_rel <= 1e-5 and worst <= 1e-4 and share >= 0.999
+    log(f"phase 5c: 2-layer LM card vs CPU, 3 steps fused LN + fused AdamW "
+        f"in f32: loss rel diff {loss_rel:.3e} (<= 1e-5), params max diff "
+        f"{worst:.3e} (<= 1e-4), share within 2e-6 {share:.6f} (>= 0.999): "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError("card and CPU disagree on the small LM")
+    return {"loss_rel": loss_rel, "param_max": worst, "share": share}
+
+
+def lm_world2_worker() -> dict:
+    """One rank of the world-2 LM run: medium widths at 2 layers, seq 1024,
+    batch 2 per rank, 2 steps, fused LayerNorm and fused AdamW; launches
+    counted from 0 just before the run."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import synthetic_lm_train
+
+    ck.reset_launch_counts()
+    res = synthetic_lm_train("medium", num_layers=2, batch=2, steps=2,
+                             warmup=0, fused_ln=True, fused_opt=True)
+    res["counts"] = ck.launch_counts()
+    res["backend"] = hvd.backend()
+    return res
+
+
+def phase_lm_world2() -> dict:
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    ranks = testing.run_cluster(lm_world2_worker, np=2, device="cuda",
+                                timeout=600)
+    want = {k: 2 * n for k, n in lm_per_step(True, 2).items()}
+    same = ranks[0]["params_sha256"] == ranks[1]["params_sha256"]
+    launched = all(r["counts"][k] == n for r in ranks for k, n in
+                   want.items())
+    ok = (same and launched
+          and all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+                  and all(math.isfinite(v) for v in r["losses"])
+                  for r in ranks))
+    log(f"phase 5d: world 2 (gloo, one card) LM medium widths, 2 layers, seq "
+        f"1024, batch 2/rank, 2 steps fused: params bit-identical {same}, "
+        f"launches {[{k: r['counts'][k] for k in want} for r in ranks]} "
+        f"(want {want} each), losses "
+        f"{[[round(v, 4) for v in r['losses']] for r in ranks]}: ok={ok}")
+    if not ok:
+        raise AssertionError("world-2 LM run failed its checks")
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
 # --------------------------------------------------------------- phase 2
 def phase_world1() -> dict:
     import horovod_tpu_torch as hvd
@@ -429,6 +971,8 @@ def _device_ms(prof) -> dict:
 
     out = {}
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue  # a range such as Optimizer.step: its kernels count
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
             out[evt.key] = out.get(evt.key, 0.0) + \
                 evt.self_device_time_total / 1e3
@@ -745,19 +1289,28 @@ def main(argv=None) -> int:
 
     kernels = phase_kernels(rate)
     kernels["adasum_combine_pairs"] = phase_adasum_kernel(rate)
+    lm_kernels = phase_lm_kernels(rate)
+    lm_checks = lm_kernels.pop("checks")
+    kernels.update(lm_kernels)
     world1 = phase_world1()
     breakdown = phase_breakdown(world1["batch"])
     small = phase_small_agreement()
+    lm1 = phase_lm_world1()
+    lm_profile = phase_lm_profile()
+    lm_small = phase_lm_small_agreement()
     hvd.shutdown()
     world2 = phase_world2()
     adasum2 = phase_adasum_world2()
     adasum4 = phase_adasum_world4()
+    lm2 = phase_lm_world2()
 
     # each main-path run counted its launches from 0
     runs = ([world1["counts"]]
             + [r[m]["counts"] for r in world2["ranks"]
                for m in ("int8", "int4")]
-            + [r["counts"] for r in adasum2["ranks"] + adasum4["ranks"]])
+            + [r["counts"] for r in adasum2["ranks"] + adasum4["ranks"]]
+            + [r["counts"] for r in lm1.values()]
+            + [r["counts"] for r in lm2["ranks"]])
     for k in kernels.values():
         k["launches"] = sum(c[k["name"]] for c in runs)
     missing = [k for k, v in kernels.items() if v["launches"] == 0]
@@ -767,7 +1320,9 @@ def main(argv=None) -> int:
     report = {"card": CARD, "kernels": list(kernels.values()),
               "world1": world1, "breakdown": breakdown, "small": small,
               "world2": world2, "adasum_world2": adasum2,
-              "adasum_world4": adasum4}
+              "adasum_world4": adasum4, "lm_checks": lm_checks,
+              "lm_world1": lm1, "lm_profile": lm_profile,
+              "lm_small": lm_small, "lm_world2": lm2}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -1,5 +1,6 @@
-"""Parameters of the Flax ResNet (``horovod_tpu/models/resnet.py``) as a
-``state_dict`` of :mod:`.resnet`.
+"""Parameters of the Flax ResNet (``horovod_tpu/models/resnet.py``) and
+transformer LM (``horovod_tpu/models/transformer.py``) as a ``state_dict``
+of :mod:`.resnet` and :mod:`.transformer`.
 
 Takes nested dicts of numpy arrays, so it needs no JAX: the caller turns its
 Flax variables into numpy first (``jax.tree_util.tree_map(np.asarray, ...)``).
@@ -66,4 +67,38 @@ def resnet_state_dict_from_flax(params: Dict, batch_stats: Dict) -> Dict:
                     out[key] = _tensor(leaf, arr)
             else:
                 raise KeyError(f"unknown Flax module {top!r}")
+    return out
+
+
+_LM_BLOCK = re.compile(r"^block_(\d+)$")
+_LN = {"scale": "weight", "bias": "bias"}
+
+
+def transformer_state_dict_from_flax(params: Dict) -> Dict:
+    """``params``: the Flax ``TransformerLM``'s params collection as nested
+    dicts of numpy arrays (either LayerNorm class: both name their leaves
+    ``scale`` / ``bias``). Returns a ``state_dict`` for the torch
+    ``TransformerLM`` of the same shape: a Dense kernel ``[in, out]``
+    becomes ``weight [out, in]`` with the qkv column order kept; the token
+    and position tables pass through."""
+    out = {}
+
+    def put(prefix: str, layer: str, leaves: Dict) -> None:
+        for leaf, arr in leaves.items():
+            name = _LN[leaf] if layer.startswith("ln_") else _leaf_name(leaf)
+            out[f"{prefix}.{name}"] = _tensor(leaf, arr)
+
+    for top, sub in params.items():
+        m = _LM_BLOCK.match(top)
+        if m:
+            for layer, leaves in sub.items():
+                put(f"blocks.{m.group(1)}.{layer}", layer, leaves)
+        elif top == "tok_emb":
+            out["tok_emb.weight"] = _tensor("embedding", sub["embedding"])
+        elif top == "pos_emb":
+            out["pos_emb"] = _tensor("pos_emb", sub)
+        elif top == "ln_f":
+            put("ln_f", top, sub)
+        else:
+            raise KeyError(f"unknown Flax module {top!r}")
     return out

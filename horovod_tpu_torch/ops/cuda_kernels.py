@@ -5,7 +5,12 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
 * the wire section (int8 block quantize / dequantize, fused quantize + pack
   for the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
 * the Adasum pairwise combine (``adasum_combine_pairs``), CUDA C++ in
-  ``csrc/adasum.cu``.
+  ``csrc/adasum.cu``;
+* flash attention, forward (``flash_attention_fwd``) and backward
+  (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``;
+* the LayerNorm forward (``layer_norm_fwd``), ``csrc/layer_norm.cu``;
+* the AdamW update over many leaves at once (``adamw_update``),
+  ``csrc/adamw.cu``.
 
 Each wrapper here
 
@@ -27,7 +32,8 @@ The Adasum combine of a pair ``(a, b)``: ``dot``, ``|a|^2`` and ``|b|^2``
 reduced in f32, then ``(1 - dot/(2|a|^2)) a + (1 - dot/(2|b|^2)) b`` in the
 input dtype, a coefficient being 1 where its norm is 0. Kernel and twin
 reduce in different orders, so they agree to a tolerance, not to the bit
-(``chip_smoke.py`` states it).
+(``chip_smoke.py`` states it). So do the attention and LayerNorm kernels;
+the AdamW kernel rounds every operation as its twin does.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ INT4_QMAX = 7.0
 
 _FLOATS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
 # C function -> (library of csrc/<library>.cu, argument types, result type)
 _SIGNATURES = {
     "hvd_int8_quantize": ("wire_quant", [_P, _I, _P, _P, _I64, _I, _P], _I),
@@ -53,6 +60,15 @@ _SIGNATURES = {
     "hvd_adasum_combine": ("adasum", [_P, _I64, _P, _I64, _I, _P, _I64, _I64,
                                       _P, _P], _I),
     "hvd_adasum_scratch_floats": ("adasum", [_I64, _I64, _I], _I64),
+    # the last argument of each launcher is the stream
+    "hvd_flash_fwd": ("flash_attention", [_P, _P] + [_I] * 9
+                      + [_F, _P, _P, _P], _I),
+    "hvd_flash_bwd": ("flash_attention", [_P, _P] + [_I] * 10
+                      + [_F, _F] + [_P] * 6, _I),
+    "hvd_layer_norm_fwd": ("layer_norm", [_P, _I] + [_P] * 5
+                           + [_I64, _I64, _F, _P], _I),
+    "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
+    "hvd_adamw_block_elems": ("adamw", [], _I64),
 }
 
 
@@ -261,8 +277,290 @@ def adasum_combine_pairs(a, b):
     return out
 
 
+# ------------------------------------------------------ flash attention
+# Operands are [B, T, H, D] in the reference's layout; the statistics lse
+# and D = rowsum(dO * O) are [B, H, Tq] f32.
+_LOG2E = 1.4426950408889634
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ATTN_HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
+
+
+def _scores(q, k, scale, causal, q_off, k_off):
+    """[B, H, Tq, Tk] f32 logits ``scale * q.k``, -inf where the causal mask
+    hides a key (global positions ``q_off + i`` against ``k_off + j``)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal, scale, q_off=0, k_off=0):
+    """Plain attention with the flash kernel's contract: (out [B, Tq, H, D]
+    in q's dtype, lse [B, H, Tq] f32, natural log). A fully masked row gives
+    out 0 and lse 0 (``pallas_kernels._masked_row_stats``)."""
+    s = _scores(q, k, scale, causal, q_off, k_off)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bkhd->bqhd", e / l, v.float()).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_plain(q, k, v, dout, lse, dd, *, causal, scale,
+                              out_dtype=None, q_off=0, k_off=0):
+    """(dq, dk, dv) from the saved lse, with the kernel's contract: p =
+    exp(s - lse) recomputed (no autograd through the scores), dS = p (dP -
+    D) scale, p and dS rounded to q's dtype before their products, f32
+    sums; outputs in ``out_dtype`` (default q's dtype)."""
+    def operand(x):
+        return x.to(q.dtype).float()
+
+    s = _scores(q, k, scale, causal, q_off, k_off)
+    p = torch.exp(s - lse[..., None])
+    dof = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", operand(p), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = operand(p * (dp - dd[..., None]) * scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    out = out_dtype or q.dtype
+    return dq.to(out), dk.to(out), dv.to(out)
+
+
+def _check_bthd(t, what: str) -> None:
+    if not isinstance(t, torch.Tensor) or t.dim() != 4:
+        raise ValueError(f"{what}: expected a [B, T, H, D] tensor, got "
+                         f"{getattr(t, 'shape', type(t))}")
+    if t.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"{what}: dtype {t.dtype} not in float32, bfloat16")
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        raise ValueError(f"{what}: the D values of a row must be contiguous "
+                         f"(strides {t.stride()})")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _check_attention(q, k, v, dout=None) -> None:
+    named = [("q", q), ("k", k), ("v", v)] + (
+        [] if dout is None else [("dout", dout)])
+    for what, t in named:
+        _check_bthd(t, what)
+    b, _, h, d = q.shape
+    if (k.shape != v.shape or (b, h, d) != (k.shape[0], k.shape[2],
+                                            k.shape[3])
+            or (dout is not None and dout.shape != q.shape)
+            or any(t.dtype != q.dtype or t.device != q.device
+                   for _, t in named)):
+        raise ValueError("flash attention: q, k, v (and dout) must agree in "
+                         "batch, heads, head dim, dtype and device; got "
+                         + ", ".join(f"{n} {tuple(t.shape)} {t.dtype} "
+                                     f"{t.device}" for n, t in named))
+    if q.device.type == "cuda" and d not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {d} not in "
+                         f"{_ATTN_HEAD_DIMS} (the kernel's instantiations)")
+
+
+def _aligned_rows(t):
+    """``t`` if every row starts on a 16-byte boundary, else a contiguous
+    copy (the kernel reads rows 16 bytes at a time)."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(t.stride(i) * es % 16 == 0
+                                      for i in range(3)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _operand_table(*ts):
+    """Host arrays of the operands' pointers and (sb, st, sh) strides."""
+    ptrs = (ctypes.c_int64 * len(ts))(*[t.data_ptr() for t in ts])
+    strides = (ctypes.c_int64 * (3 * len(ts)))(
+        *[s for t in ts for s in t.stride()[:3]])
+    return ptrs, strides
+
+
+def flash_attention_fwd(q, k, v, *, causal=False, scale=None, q_off=0,
+                        k_off=0):
+    """q [B, Tq, H, D], k and v [B, Tk, H, D], f32 or bf16 -> (out [B, Tq,
+    H, D] in q's dtype, lse [B, H, Tq] f32). Replaces
+    ``pallas_kernels._flash_fwd_once_call``; operands may be strided views
+    (the q, k, v of a fused qkv projection are read in place). ``q_off`` /
+    ``k_off``: global positions of row 0 for the causal mask. On the card
+    D is 32, 64 or 128; any T."""
+    _check_attention(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                         q_off=q_off, k_off=k_off)
+    out = torch.zeros((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
+    if b and h and tq and tk:  # no keys: every row fully masked, 0 and 0
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+        ptrs, strides = _operand_table(q, k, v)
+        _launch("hvd_flash_fwd", q.device, ctypes.addressof(ptrs),
+                ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
+                tk, d, q_off, k_off, int(causal), scale * _LOG2E,
+                out.data_ptr(), lse.data_ptr())
+        flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
+                        out_dtype=None, q_off=0, k_off=0):
+    """(dq, dk, dv) of flash attention from q, k, v, dO [B, T, H, D] and
+    lse, D = rowsum(dO * O) [B, H, Tq] f32, in ``out_dtype``: q's dtype
+    (the default; the single-device path) or f32 (the reference's
+    two-pass and ring contract). Replaces ``pallas_kernels._flash_bwd_fused``
+    and ``_flash_bwd_resident``. One call, two CUDA kernels (dq; dk and
+    dv), deterministic."""
+    _check_attention(q, k, v, dout)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    for what, t in (("lse", lse), ("dd", dd)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or tuple(t.shape) != (b, h, tq) or t.device != q.device):
+            raise ValueError(f"flash_attention_bwd: {what} must be f32 "
+                             f"[{b}, {h}, {tq}] on {q.device}")
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"flash_attention_bwd: out_dtype {out_dtype} is "
+                        f"neither {q.dtype} nor float32")
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, dd,
+                                         causal=causal, scale=scale,
+                                         out_dtype=out_dtype, q_off=q_off,
+                                         k_off=k_off)
+    dq = torch.zeros((b, tq, h, d), dtype=out_dtype, device=q.device)
+    dk = torch.zeros((b, tk, h, d), dtype=out_dtype, device=q.device)
+    dv = torch.zeros((b, tk, h, d), dtype=out_dtype, device=q.device)
+    if b and h and tq and tk:
+        q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
+        lse, dd = lse.contiguous(), dd.contiguous()
+        ptrs, strides = _operand_table(q, k, v, dout)
+        _launch("hvd_flash_bwd", q.device, ctypes.addressof(ptrs),
+                ctypes.addressof(strides), _ATTN_DTYPES[q.dtype],
+                int(out_dtype == torch.float32), b, h, tq, tk, d, q_off,
+                k_off, int(causal), scale, scale * _LOG2E, lse.data_ptr(),
+                dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------- layernorm
+def layer_norm_fwd_plain(x2, gamma, beta, eps):
+    """[N, D] -> (y [N, D] in x's dtype, mean [N] f32, rstd [N] f32): the
+    two-pass f32 statistics of ``pallas_kernels._ln_fwd_kernel``."""
+    xf = x2.float()
+    d = x2.shape[1]
+    mean = xf.sum(1, keepdim=True) / d
+    xc = xf - mean
+    var = (xc * xc).sum(1, keepdim=True) / d
+    rstd = torch.rsqrt(var + eps)
+    y = xc * rstd * gamma.float() + beta.float()
+    return y.to(x2.dtype), mean[:, 0], rstd[:, 0]
+
+
+def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-6):
+    """Contiguous [N, D] f32/bf16/f16, gamma and beta [D] -> (y [N, D] in
+    x's dtype, mean [N] f32, rstd [N] f32). Replaces
+    ``pallas_kernels._ln_fused_fwd_call``; any D (no lane gate). gamma and
+    beta are used in f32."""
+    _check_2d(x2, "layer_norm_fwd", _FLOATS)
+    n, d = x2.shape
+    for what, t in (("gamma", gamma), ("beta", beta)):
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != (d,)
+                or t.device != x2.device or not t.is_floating_point()):
+            raise ValueError(f"layer_norm_fwd: {what} must be a float [{d}] "
+                             f"tensor on {x2.device}")
+    if x2.device.type == "cpu":
+        return layer_norm_fwd_plain(x2, gamma, beta, eps)
+    y = torch.empty_like(x2)
+    mean = torch.empty((n,), dtype=torch.float32, device=x2.device)
+    rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
+    if n and d:
+        g = gamma.float().contiguous()
+        bt = beta.float().contiguous()
+        _launch("hvd_layer_norm_fwd", x2.device, x2.data_ptr(),
+                _FLOATS[x2.dtype], g.data_ptr(), bt.data_ptr(), y.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), n, d, float(eps))
+        layer_norm_fwd.launches += 1
+    return y, mean, rstd
+
+
+# ------------------------------------------------------------------- adamw
+_ADAMW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def adamw_update_plain(p, g, mu, nu, *, lr, ibc1, ibc2, b1, b2, eps, wd):
+    """One leaf's AdamW step in place, in the order of
+    ``optim/fused.py:_adamw_kernel``: every operation in f32; p' in p's
+    dtype, mu' in mu's, nu' f32."""
+    gf = g.float()
+    pf = p.float()
+    m = b1 * mu.float() + (1.0 - b1) * gf
+    v = b2 * nu + (1.0 - b2) * gf * gf
+    upd = (m * ibc1) / (torch.sqrt(v * ibc2) + eps) + wd * pf
+    p.copy_(pf - lr * upd)
+    mu.copy_(m)
+    nu.copy_(v)
+
+
+def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
+                 b2=0.999, eps=1e-8, weight_decay=0.0) -> None:
+    """AdamW step of every leaf, in place: p, mu and nu are overwritten.
+    ``lr``, ``ibc1`` = 1/(1-b1^t), ``ibc2`` = 1/(1-b2^t) are the step's
+    scalars. p and g f32 or bf16 (the same), mu f32 or bf16, nu f32, all
+    contiguous. Replaces ``optim/fused.py:_apply_leaf_fused``: on the card
+    one launch covers every leaf of a (device, p dtype, mu dtype) group,
+    whatever the leaves' lengths."""
+    if not len(params) == len(grads) == len(mus) == len(nus):
+        raise ValueError("adamw_update: params, grads, mus and nus differ "
+                         "in length")
+    kw = dict(lr=lr, ibc1=ibc1, ibc2=ibc2, b1=b1, b2=b2, eps=eps,
+              wd=weight_decay)
+    groups = {}
+    for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus)):
+        if (p.shape != g.shape or p.shape != mu.shape or p.shape != nu.shape
+                or p.dtype not in _ADAMW_DTYPES or g.dtype != p.dtype
+                or mu.dtype not in _ADAMW_DTYPES or nu.dtype != torch.float32
+                or len({t.device for t in (p, g, mu, nu)}) != 1
+                or not all(t.is_contiguous() for t in (p, g, mu, nu))):
+            raise ValueError(
+                f"adamw_update: leaf {i}: p {tuple(p.shape)} {p.dtype}, g "
+                f"{tuple(g.shape)} {g.dtype}, mu {tuple(mu.shape)} "
+                f"{mu.dtype}, nu {tuple(nu.shape)} {nu.dtype} (want one "
+                "shape, contiguous, on one device; p and g f32 or bf16 "
+                "alike, mu f32 or bf16, nu f32)")
+        if p.device.type == "cpu":
+            adamw_update_plain(p, g, mu, nu, **kw)
+        elif p.numel():
+            groups.setdefault((p.device, p.dtype, mu.dtype), []).append(
+                (p, g, mu, nu))
+    if not groups:
+        return
+    per_block = _kernel("hvd_adamw_block_elems")[1]()
+    for (dev, p_dtype, mu_dtype), leaves in groups.items():
+        rows, first = [], 0
+        for p, g, mu, nu in leaves:
+            rows += [g.data_ptr(), p.data_ptr(), mu.data_ptr(),
+                     nu.data_ptr(), p.numel(), first]
+            first += -(-p.numel() // per_block)
+        table = torch.tensor(rows, dtype=torch.int64).to(dev)
+        _launch("hvd_adamw", dev, table.data_ptr(), len(leaves), first,
+                _ADAMW_DTYPES[p_dtype], _ADAMW_DTYPES[mu_dtype], lr, ibc1,
+                ibc2, b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay)
+        adamw_update.launches += 1
+
+
 WRAPPERS = (int8_quantize_2d, int8_dequantize_2d, int8_quantize_pack_2d,
-            int4_quantize_pack_2d, adasum_combine_pairs)
+            int4_quantize_pack_2d, adasum_combine_pairs, flash_attention_fwd,
+            flash_attention_bwd, layer_norm_fwd, adamw_update)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -8,6 +8,10 @@ in :func:`DistributedOptimizer`, which averages the gradients
 (``op="average"``) or Adasum-combines the local updates (``op="adasum"``);
 the loss is softmax cross-entropy. On the card the forward runs under bf16
 autocast with f32 parameters, in channels_last.
+
+``synthetic_lm_train`` is the dense transformer-LM step of the reference's
+``benchmarks/lm_bench.py``: tokens/s and MFU of AdamW training on seeded
+random tokens.
 """
 
 from __future__ import annotations
@@ -23,10 +27,34 @@ import torch.nn.functional as F
 from . import basics
 from .basics import Adasum, Average
 from .models import resnet
+from .models.transformer import TransformerLM, lm_loss, lm_loss_chunked
 from .ops import compression as comp
 from .ops import cuda_kernels as ck
 from .optim.broadcast import broadcast_parameters
 from .optim.distributed import DistributedOptimizer
+from .optim.fused import FusedAdamW
+
+# lm_bench's presets (benchmarks/lm_bench.py:50-58): widths and the
+# per-replica batch and sequence
+LM_PRESETS = {
+    "medium": dict(num_layers=24, d_model=1024, num_heads=16, batch=8,
+                   seq=1024),
+    "small": dict(num_layers=12, d_model=768, num_heads=12, batch=8,
+                  seq=1024),
+    "tiny": dict(num_layers=2, d_model=64, num_heads=2, batch=2, seq=64),
+}
+# Dense bf16 tensor-core peak by card name (NVIDIA data sheets), FLOP/s:
+# the MFU denominator.
+PEAK_BF16_FLOPS = (("H100 NVL", 835e12), ("H100 PCIe", 756e12),
+                   ("H100", 989.4e12), ("H200", 989.4e12))
+
+
+def peak_bf16_flops(name: str):
+    """The dense bf16 peak of the card named ``name``, or None."""
+    for key, flops in PEAK_BF16_FLOPS:
+        if key in name:
+            return flops
+    return None
 
 
 def params_sha256(model: torch.nn.Module) -> str:
@@ -133,4 +161,150 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
         "params_sha256": params_sha256(net),
         "gradient_leaves": sum(1 for p in net.parameters()
                                if p.requires_grad),
+    }
+
+
+def synthetic_lm_tokens(batch: int, seq: int, vocab: int, rank: int,
+                        world: int):
+    """This rank's rows of the seeded global token batch ``[batch * world,
+    seq + 1]`` (``RandomState(0)``), as lm_bench draws and shards it."""
+    toks = np.random.RandomState(0).randint(0, vocab, (batch * world,
+                                                       seq + 1))
+    return toks[rank * batch:(rank + 1) * batch].astype(np.int64)
+
+
+class LMTrainer:
+    """The model, data and optimizer of :func:`synthetic_lm_train`, built
+    on this rank's device (the framework is initialized on ``device`` if it
+    is not yet); :meth:`step` takes one training step. Arguments as in
+    :func:`synthetic_lm_train`."""
+
+    def __init__(self, preset: str = "medium", batch: Optional[int] = None,
+                 seq: Optional[int] = None, vocab: int = 32768,
+                 fused_ln: bool = False, fused_opt: bool = False,
+                 mu_dtype: str = "bf16", chunked="auto", remat: str = "none",
+                 device: Optional[str] = None, seed: int = 0,
+                 num_layers: Optional[int] = None):
+        if preset not in LM_PRESETS:
+            raise ValueError(f"preset {preset!r}: expected one of "
+                             f"{sorted(LM_PRESETS)}")
+        cfg = LM_PRESETS[preset]
+        self.batch = cfg["batch"] if batch is None else batch
+        self.seq = cfg["seq"] if seq is None else seq
+        self.num_layers = (cfg["num_layers"] if num_layers is None
+                           else num_layers)
+        basics.init(device=device)
+        self.device = dev = basics.device()
+        self.world = basics.size()
+        self.on_cuda = dev.type == "cuda"
+        if chunked == "auto":
+            chunked = self.batch * self.seq * vocab * 4 > 2 * 2 ** 30
+        self.chunked = chunked
+        self.net = net = TransformerLM(
+            vocab, num_layers=self.num_layers, num_heads=cfg["num_heads"],
+            d_model=cfg["d_model"], max_seq_len=self.seq,
+            dtype=torch.bfloat16 if self.on_cuda else torch.float32,
+            remat=remat, fused_ln=fused_ln, seed=seed).to(dev)
+        broadcast_parameters(net.state_dict(), root_rank=0)
+        self.n_params = sum(p.numel() for p in net.parameters())
+        self.n_nonemb = (self.n_params - net.tok_emb.weight.numel()
+                         - net.pos_emb.numel())
+        toks = torch.from_numpy(synthetic_lm_tokens(
+            self.batch, self.seq, vocab, basics.rank(), self.world)).to(dev)
+        self.x, self.y = toks[:, :-1], toks[:, 1:]
+        if fused_opt:
+            inner = FusedAdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
+                               mu_dtype=mu_dtype)
+        else:
+            inner = torch.optim.AdamW(net.parameters(), lr=3e-4,
+                                      weight_decay=0.01, fused=self.on_cuda)
+        self.opt = DistributedOptimizer(
+            inner, named_parameters=net.named_parameters())
+        self.config = dict(preset=preset, num_layers=self.num_layers,
+                           batch=self.batch, seq=self.seq, vocab=vocab,
+                           world=self.world, fused_ln=fused_ln,
+                           fused_opt=fused_opt,
+                           mu_dtype=mu_dtype if fused_opt else None,
+                           chunked=chunked, remat=remat)
+
+    def step(self):
+        """One training step; returns the loss (a device tensor)."""
+        self.opt.zero_grad()
+        if self.chunked:
+            loss = lm_loss_chunked(self.net(self.x, return_hidden=True),
+                                   self.net.tok_emb.weight, self.y)
+        else:
+            loss = lm_loss(self.net(self.x), self.y)
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    def sync(self) -> None:
+        if self.on_cuda:
+            torch.cuda.synchronize(self.device)
+
+
+def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
+                       seq: Optional[int] = None, vocab: int = 32768,
+                       steps: int = 5, warmup: int = 2,
+                       fused_ln: bool = False, fused_opt: bool = False,
+                       mu_dtype: str = "bf16", chunked="auto",
+                       remat: str = "none", device: Optional[str] = None,
+                       seed: int = 0, num_layers: Optional[int] = None
+                       ) -> dict:
+    """Train the transformer LM of ``preset`` for ``warmup + steps`` steps
+    (the dense path of ``benchmarks/lm_bench.py``).
+
+    bf16 compute on the card (f32 on the CPU) with f32 parameters; causal
+    flash attention (K5/K7) in every layer; ``fused_ln`` takes the K8
+    LayerNorm, ``fused_opt`` the fused AdamW (K9) with ``mu_dtype``. The
+    default optimizer is ``torch.optim.AdamW`` (``fused=True`` on the card),
+    the counterpart of the reference's ``optax.adamw``; it keeps its first
+    moment in the parameters' f32, not in ``mu_dtype``. Both take lr 3e-4
+    and weight decay 0.01, wrapped in ``DistributedOptimizer`` (Average,
+    exact wire). ``num_layers`` cuts the preset's depth (its widths stay).
+    ``chunked``: ``"auto"`` takes the chunked loss when this rank's f32
+    logits would pass 2 GiB, as lm_bench does; or True / False. Weights
+    come from ``seed``; tokens from ``RandomState(0)``, a global batch of
+    ``batch * size()`` rows of which this rank takes its own.
+
+    Returns ``losses``, ``tokens_per_sec`` (all ranks, timed steps),
+    ``mfu_pct`` (6 * non-embedding parameters * tokens/s over the card's
+    dense bf16 peak times the world size; None on the CPU or an unknown
+    card), ``peak_memory_bytes``, ``launches`` (per wrapper, this call),
+    ``params_sha256`` and the configuration.
+    """
+    tr = LMTrainer(preset, batch=batch, seq=seq, vocab=vocab,
+                   fused_ln=fused_ln, fused_opt=fused_opt, mu_dtype=mu_dtype,
+                   chunked=chunked, remat=remat, device=device, seed=seed,
+                   num_layers=num_layers)
+    before = ck.launch_counts()
+    if tr.on_cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    losses = [tr.step() for _ in range(warmup)]
+    tr.sync()
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(steps)]
+    tr.sync()
+    elapsed = time.perf_counter() - t0
+    after = ck.launch_counts()
+    tok_s = tr.batch * tr.world * tr.seq * steps / elapsed if steps else None
+    peak = (peak_bf16_flops(torch.cuda.get_device_name(tr.device))
+            if tr.on_cuda else None)
+    return {
+        "losses": [float(v) for v in losses],
+        "tokens_per_sec": tok_s,
+        "mfu_pct": (100 * 6 * tr.n_nonemb * tok_s / (tr.world * peak)
+                    if tok_s and peak else None),
+        "peak_flops": peak,
+        "step_ms": 1e3 * elapsed / steps if steps else None,
+        "launches": {k: after[k] - before[k] for k in after},
+        "device": str(tr.device),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(tr.device)
+                              if tr.on_cuda else None),
+        "params_sha256": params_sha256(tr.net),
+        "n_params": tr.n_params, "n_nonemb_params": tr.n_nonemb,
+        "gradient_leaves": sum(1 for p in tr.net.parameters()
+                               if p.requires_grad),
+        **tr.config,
     }

@@ -1,0 +1,120 @@
+"""The LM kernels against their plain twins on the card (K5, K7: flash
+attention; K8: LayerNorm; K9: AdamW), at small shapes, with the tolerances
+of ``chip_smoke.py`` phase 5.
+
+Every test needs a CUDA device and skips without one. The module imports
+neither jax nor the reference, so that it runs where only PyTorch is
+installed: ``python3 -m pytest --noconftest tests/test_torch_cuda.py``
+(``tests/conftest.py`` sets up jax for the rest of the suite).
+"""
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import cuda_kernels as ck
+
+pytestmark = pytest.mark.cuda
+BF16_EPS = 2.0 ** -7
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ck.reset_launch_counts()
+
+
+def _gen():
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel_close(a, b, rel):
+    a, b = a.double(), b.double()
+    scale = torch.maximum(a.abs(), b.abs()).max()
+    assert float((a - b).abs().max()) <= rel * float(scale)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_matches_twin_bf16_qkv_views(d):
+    """bf16 causal attention on the strided q/k/v views of a qkv tensor:
+    out within one bf16 unit at its row's largest magnitude, lse to 1e-5,
+    gradients to 2^-6 of each tensor's largest |value|, and two backward
+    launches byte-equal."""
+    gen = _gen()
+    qkv = torch.randn(2, 200, 4, 3, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    do = torch.randn(2, 200, 4, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = d ** -0.5
+    out, lse = ck.flash_attention_fwd(q, k, v, causal=True)
+    out_t, lse_t = ck.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                scale=scale)
+    row = torch.maximum(out.float().abs(), out_t.float().abs()).amax(-1)
+    assert ((out.float() - out_t.float()).abs().amax(-1)
+            <= BF16_EPS * row).all()
+    assert ((lse - lse_t).abs() <= 1e-5 * (lse_t.abs() + 1)).all()
+    dd = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = ck.flash_attention_bwd(q, k, v, do, lse, dd, causal=True)
+    again = ck.flash_attention_bwd(q, k, v, do, lse, dd, causal=True)
+    want = ck.flash_attention_bwd_plain(q, k, v, do, lse, dd, causal=True,
+                                        scale=scale)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+        _rel_close(g, w, 2.0 ** -6)
+    assert ck.launch_counts()["flash_attention_bwd"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_matches_twin_with_offsets(dtype):
+    """Attention with hop offsets on both paths (f32: CUDA cores, bf16:
+    tensor cores); rows that see no key give out 0 and lse 0; f32-output
+    gradients to 1e-4 (f32) or 2^-6 (bf16) of each tensor's largest
+    |value|."""
+    gen = _gen()
+    q, k, v = (torch.randn(1, t, 2, 64, generator=gen, device="cuda").to(
+        dtype) for t in (96, 160, 160))
+    kw = dict(causal=True, scale=0.125, q_off=0, k_off=32)
+    out, lse = ck.flash_attention_fwd(q, k, v, **kw)
+    out_t, lse_t = ck.flash_attention_fwd_plain(q, k, v, **kw)
+    _rel_close(out, out_t, 1e-5 if dtype == torch.float32 else BF16_EPS)
+    assert not out[:, :32].any() and not lse[..., :32].any()
+    dd = (q.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for g, w in zip(ck.flash_attention_bwd(q, k, v, q, lse, dd,
+                                           out_dtype=torch.float32, **kw),
+                    ck.flash_attention_bwd_plain(q, k, v, q, lse, dd,
+                                                 out_dtype=torch.float32,
+                                                 **kw)):
+        _rel_close(g, w, tol)
+
+
+def test_layer_norm_and_adamw_match_twins():
+    """K8 to one bf16 unit (plus 1e-6 of the row's largest |y|), mean and
+    rstd to 2e-6 / 4e-6; K9 bit for bit, one launch over two leaves."""
+    gen = _gen()
+    x = torch.randn(512, 1000, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    g, b = (torch.randn(1000, generator=gen, device="cuda") for _ in "gb")
+    y, mean, rstd = ck.layer_norm_fwd(x, g, b)
+    yt, mean_t, rstd_t = ck.layer_norm_fwd_plain(x, g, b, 1e-6)
+    yd, ytd = y.double(), yt.double()
+    bound = (BF16_EPS * torch.maximum(yd.abs(), ytd.abs())
+             + 1e-6 * ytd.abs().amax(1, keepdim=True))
+    assert ((yd - ytd).abs() <= bound).all()
+    assert ((mean - mean_t).abs()
+            <= 2e-6 * x.float().abs().amax(1)).all()
+    assert ((rstd - rstd_t).abs() <= 4e-6 * rstd_t).all()
+    ps = [torch.randn(n, generator=gen, device="cuda") for n in (4097, 3)]
+    gs = [torch.randn_like(p) for p in ps]
+    mus = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    nus = [torch.zeros_like(p) for p in ps]
+    twin = [[t.clone() for t in ts] for ts in (ps, mus, nus)]
+    sc = dict(lr=0.01, ibc1=10.0, ibc2=1000.0, b1=0.9, b2=0.999, eps=1e-8)
+    ck.adamw_update(ps, gs, mus, nus, weight_decay=0.01, **sc)
+    for p, gg, mu, nu in zip(twin[0], gs, twin[1], twin[2]):
+        ck.adamw_update_plain(p, gg, mu, nu, wd=0.01, **sc)
+    for got, want in zip((ps, mus, nus), twin):
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+    assert ck.launch_counts()["adamw_update"] == 1
