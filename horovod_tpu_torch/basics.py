@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -49,6 +49,7 @@ class _GlobalState:
     device: Optional[torch.device] = None
     backend: Optional[str] = None  # "nccl" | "gloo" | None (standalone)
     executor: Any = None
+    groups: dict = field(default_factory=dict)  # ranks -> process group
 
 
 _state = _GlobalState()
@@ -121,6 +122,17 @@ def shutdown() -> None:
         if _state.mode == "multiprocess" and dist.is_initialized():
             dist.destroy_process_group()
         _state = _GlobalState()
+
+
+def process_group(ranks):
+    """The process group of the global ``ranks``, made at its first request
+    and kept until ``shutdown``. As with ``dist.new_group``, every rank
+    requests every group, in the same order."""
+    st = _require_init()
+    key = tuple(ranks)
+    if key not in st.groups:
+        st.groups[key] = dist.new_group(list(key))
+    return st.groups[key]
 
 
 def is_initialized() -> bool:

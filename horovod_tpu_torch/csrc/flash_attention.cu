@@ -1,14 +1,32 @@
-// Flash attention for Hopper (sm_90a): forward K5 and backward K7.
+// Flash attention for Hopper (sm_90a): forward K5, ring step K6 and
+// backward K7.
 //
 // Replaces, in horovod_tpu/ops/pallas_kernels.py:
 //   K5  _flash_fwd_once_call (:339; kernel _flash_fwd_once_kernel :301 over
 //       the shared loop _flash_accum :222): online-softmax attention with a
 //       normalized output in the input dtype and the f32 row LSE in natural
 //       log units;
+//   K6  _flash_step_call (:497; kernel _flash_step_kernel :262) and
+//       _flash_step_call_streaming (:457; kernel _flash_step_stream_kernel
+//       :381): one hop of ring attention, K5's loop started from a carried
+//       (m, l, o) and ended without normalizing. The TPU splits resident and
+//       streamed k/v for its VMEM budget; here k/v tiles stream at any
+//       length, so one kernel covers both;
 //   K7  _flash_bwd_fused (:923; kernel :826): dq, dk, dv from q, k, v, dO,
 //       the LSE and D = rowsum(dO * O), in the input dtype or in f32. With
 //       f32 outputs it also computes what the two-pass _flash_bwd_resident
-//       (:986) computes; the TPU split that one in two for its VMEM budget.
+//       (:986) and the streaming branch of _flash_bwd_hm (:1084) compute,
+//       the latter at the ring's hop offsets; the TPU split them for its
+//       VMEM budget.
+//
+// K6's carry: m and l [B, H, Tq] f32, m in natural log units, and the
+// unnormalized o [B, Tq, H, D] f32, read at the start and written in place
+// (each element by the thread that read it, after the block's first
+// barrier). m enters base 2 once, m_in log2 e, and leaves once, m ln 2,
+// except that a row whose maximum the hop did not raise gets m_in back bit
+// for bit; a block whose rows see no key of the hop (causal, k_off past
+// its last row) returns before touching anything, so a fully masked hop
+// leaves the whole carry as it was.
 //
 // Operands are [B, T, H, D] tensors read through their strides (elements;
 // the D values of a row are contiguous, every row on a 16-byte boundary), so
@@ -48,7 +66,10 @@
 // the forward moves 68 MB (20 us at 3.35 TB/s) for 17.2 GFLOP (17 us at
 // the bf16 tensor-core peak), the backward 118 MB (35 us) for 43 GFLOP
 // (43 us): both near the card's ridge point, so either bound is a few tens
-// of microseconds. This version stages every product through shared memory and
+// of microseconds. K6 at the ring hop of a 16384-token sequence over 4
+// ranks (q, k, v [1, 4096, 16, 64] bf16) moves 59.8 MB (17.8 us), its f32
+// carry in and out the most of it, for 68.7 GFLOP on a fully visible hop
+// (69.5 us): bound by operations. This version stages every product through shared memory and
 // computes dq apart from dk and dv (seven products in the backward where
 // the fused one does five), so shared-memory traffic, not the tensor
 // cores, sets its pace; wgmma, TMA and register-resident softmax are later
@@ -269,6 +290,13 @@ __device__ __forceinline__ void store_rows(O* out, const float (&acc)[RM][4 * Cf
   }
 }
 
+// K6's carry, written in place (see the top of the file); null for K5.
+struct Carry {
+  float* m;
+  float* l;
+  float* o;
+};
+
 // Number of kBN-row k tiles a q tile whose last row is q_last can see.
 __device__ __forceinline__ int causal_hi(int64_t q_last, int k_off, int nk) {
   const int64_t num = q_last - k_off;
@@ -277,12 +305,14 @@ __device__ __forceinline__ int causal_hi(int64_t q_last, int k_off, int nk) {
   return hi < nk ? static_cast<int>(hi) : nk;
 }
 
-// ------------------------------------------------------------- K5 forward
-template <typename T, int D>
+// --------------------------------------------- K5 forward and K6 ring step
+// kStep = false: K5 (out, lse; carry unused). kStep = true: K6 (the carry;
+// out and lse unused).
+template <typename T, int D, bool kStep>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Rows<T> q, Rows<T> k, Rows<T> v, T* __restrict__ out,
-                 float* __restrict__ lse, int H, int tq, int tk, int q_off,
-                 int k_off, int causal, float scale_log2) {
+                 float* __restrict__ lse, Carry carry, int H, int tq, int tk,
+                 int q_off, int k_off, int causal, float scale_log2) {
   using C = Cfg<D>;
   constexpr int RM = C::RM, BM = C::BM, G = C::G, LD = C::LD;
   extern __shared__ __align__(16) float smem[];
@@ -294,19 +324,40 @@ flash_fwd_kernel(Rows<T> q, Rows<T> k, Rows<T> v, T* __restrict__ out,
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   // causal: the q tiles with the most k tiles go first
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
-  load_tile<T, D>(sQ, q.head(b, h), q.st, q0, min(BM, tq - q0), BM);
   const int nk = (tk + kBN - 1) / kBN;
   const int hi = causal ? causal_hi(static_cast<int64_t>(q_off) + q0 + BM - 1,
                                     k_off, nk)
                         : nk;
+  if (kStep && hi == 0) return;  // no key of the hop: the carry stays
+  load_tile<T, D>(sQ, q.head(b, h), q.st, q0, min(BM, tq - q0), BM);
 
-  float m[RM], l[RM], o[RM][4 * G];
+  float m[RM], l[RM], o[RM][4 * G], m_in[RM], m0[RM];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
+    m0[i] = -INFINITY;
+    m_in[i] = 0.f;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4 * G; ++c) o[i][c] = 0.f;
+    const int qr = q0 + ty * RM + i;
+    if (kStep && qr < tq) {
+      const int64_t at = static_cast<int64_t>(bh) * tq + qr;
+      m_in[i] = carry.m[at];
+      m0[i] = m_in[i] * kLog2e;
+      l[i] = carry.l[at];
+      const float* row = carry.o +
+                         ((static_cast<int64_t>(b) * tq + qr) * H + h) * D +
+                         4 * tx;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 t = *reinterpret_cast<const float4*>(row + 32 * g);
+        o[i][4 * g] = t.x;
+        o[i][4 * g + 1] = t.y;
+        o[i][4 * g + 2] = t.z;
+        o[i][4 * g + 3] = t.w;
+      }
+    }
+    m[i] = m0[i];
   }
   for (int kt = 0; kt < hi; ++kt) {
     const int k0 = kt * kBN;
@@ -346,6 +397,19 @@ flash_fwd_kernel(Rows<T> q, Rows<T> k, Rows<T> v, T* __restrict__ out,
     }
     __syncthreads();
     pv_tile<D, RM>(sP + ty * RM * kLS, sV + 4 * tx, o);
+  }
+  if constexpr (kStep) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qr = q0 + ty * RM + i;
+      if (tx == 0 && qr < tq) {
+        const int64_t at = static_cast<int64_t>(bh) * tq + qr;
+        carry.m[at] = m[i] == m0[i] ? m_in[i] : m[i] * kLn2;
+        carry.l[at] = l[i];
+      }
+    }
+    store_rows<float, D, RM>(carry.o, o, b, h, H, tq, q0);
+    return;
   }
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -650,12 +714,12 @@ __device__ __forceinline__ void store_frags(FragC (&acc)[TC<D>::KD],
   }
 }
 
-template <int D>
+template <int D, bool kStep>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc_kernel(Rows<bf16> q, Rows<bf16> k, Rows<bf16> v,
-                    bf16* __restrict__ out, float* __restrict__ lse, int H,
-                    int tq, int tk, int q_off, int k_off, int causal,
-                    float scale_log2) {
+                    bf16* __restrict__ out, float* __restrict__ lse,
+                    Carry carry, int H, int tq, int tk, int q_off, int k_off,
+                    int causal, float scale_log2) {
   using C = TC<D>;
   constexpr int KD = C::KD, HALF = C::HALF;
   extern __shared__ __align__(128) unsigned char smem_tc[];
@@ -673,6 +737,11 @@ flash_fwd_tc_kernel(Rows<bf16> q, Rows<bf16> k, Rows<bf16> v,
   bf16* sPw = sP + warp * 16 * C::LP;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * C::BM;
+  const int nk = (tk + kBN - 1) / kBN;
+  const int hi = causal ? causal_hi(static_cast<int64_t>(q_off) + q0 +
+                                        C::BM - 1, k_off, nk)
+                        : nk;
+  if (kStep && hi == 0) return;  // no key of the hop: the carry stays
   copy_tile<D>(sQ, q.head(b, h), q.st, q0, min(C::BM, tq - q0), C::BM);
   __syncthreads();
   FragA qa[KD];
@@ -680,13 +749,28 @@ flash_fwd_tc_kernel(Rows<bf16> q, Rows<bf16> k, Rows<bf16> v,
   for (int kk = 0; kk < KD; ++kk)
     wm::load_matrix_sync(qa[kk], sQ + warp * 16 * C::LB + kk * 16, C::LB);
   const int qr = q0 + warp * 16 + r;
-  const int nk = (tk + kBN - 1) / kBN;
-  const int hi = causal ? causal_hi(static_cast<int64_t>(q_off) + q0 +
-                                        C::BM - 1, k_off, nk)
-                        : nk;
-  float m = -INFINITY, l = 0.f, o[HALF];
+  const int64_t at = static_cast<int64_t>(bh) * tq + qr;
+  float* crow = kStep ? carry.o +
+                            ((static_cast<int64_t>(b) * tq + qr) * H + h) * D +
+                            half * HALF
+                      : nullptr;
+  float m0 = -INFINITY, m_in = 0.f, l = 0.f, o[HALF];
 #pragma unroll
   for (int c = 0; c < HALF; ++c) o[c] = 0.f;
+  if (kStep && qr < tq) {
+    m_in = carry.m[at];
+    m0 = m_in * kLog2e;
+    l = carry.l[at];
+#pragma unroll
+    for (int c = 0; c < HALF; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(crow + c);
+      o[c] = t.x;
+      o[c + 1] = t.y;
+      o[c + 2] = t.z;
+      o[c + 3] = t.w;
+    }
+  }
+  float m = m0;
   for (int kt = 0; kt < hi; ++kt) {
     const int k0 = kt * kBN;
     __syncthreads();
@@ -738,6 +822,19 @@ flash_fwd_tc_kernel(Rows<bf16> q, Rows<bf16> k, Rows<bf16> v,
       o[c + 3] = o[c + 3] * alpha + t.w;
     }
     __syncwarp();
+  }
+  if constexpr (kStep) {
+    if (qr < tq) {
+#pragma unroll
+      for (int c = 0; c < HALF; c += 4)
+        *reinterpret_cast<float4*>(crow + c) =
+            make_float4(o[c], o[c + 1], o[c + 2], o[c + 3]);
+      if (half == 0) {
+        carry.m[at] = m == m0 ? m_in : m * kLn2;
+        carry.l[at] = l;
+      }
+    }
+    return;
   }
   const float l_safe = l == 0.f ? 1.f : l;
   if (qr < tq) {
@@ -932,21 +1029,22 @@ Rows<T> rows_of(const void* p, int64_t sb, int64_t st, int64_t sh) {
   return Rows<T>{static_cast<const T*>(p), sb, st, sh};
 }
 
-template <int D>
+template <int D, bool kStep>
 cudaError_t fwd_tc(const int64_t* ptrs, const int64_t* strides, int B, int H,
                    int tq, int tk, int q_off, int k_off, int causal,
-                   float scale_log2, void* out, void* lse, cudaStream_t st) {
+                   float scale_log2, void* out, void* lse, Carry carry,
+                   cudaStream_t st) {
   using C = TC<D>;
   const size_t smem = 3 * C::TILE + C::SCORE + C::OUT + C::PTILE;
-  cudaError_t e = allow_smem(flash_fwd_tc_kernel<D>, smem);
+  cudaError_t e = allow_smem(flash_fwd_tc_kernel<D, kStep>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (tq + C::BM - 1) / C::BM);
-  flash_fwd_tc_kernel<D><<<grid, kThreads, smem, st>>>(
+  flash_fwd_tc_kernel<D, kStep><<<grid, kThreads, smem, st>>>(
       rows_of<bf16>(reinterpret_cast<const void*>(ptrs[0]), strides[0], strides[1], strides[2]),
       rows_of<bf16>(reinterpret_cast<const void*>(ptrs[1]), strides[3], strides[4], strides[5]),
       rows_of<bf16>(reinterpret_cast<const void*>(ptrs[2]), strides[6], strides[7], strides[8]),
-      static_cast<bf16*>(out), static_cast<float*>(lse), H, tq, tk, q_off,
-      k_off, causal, scale_log2);
+      static_cast<bf16*>(out), static_cast<float*>(lse), carry, H, tq, tk,
+      q_off, k_off, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -983,22 +1081,23 @@ cudaError_t bwd_tc(const int64_t* ptrs, const int64_t* strides,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kStep>
 cudaError_t fwd(const int64_t* ptrs, const int64_t* strides, int B, int H,
                 int tq, int tk, int q_off, int k_off, int causal,
-                float scale_log2, void* out, void* lse, cudaStream_t st) {
+                float scale_log2, void* out, void* lse, Carry carry,
+                cudaStream_t st) {
   using C = Cfg<D>;
   const size_t smem = sizeof(float) *
                       ((C::BM + 2 * kBN) * C::LD + C::BM * kLS);
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t e = allow_smem(flash_fwd_kernel<T, D, kStep>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (tq + C::BM - 1) / C::BM);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<T, D, kStep><<<grid, kThreads, smem, st>>>(
       rows_of<T>(reinterpret_cast<const void*>(ptrs[0]), strides[0], strides[1], strides[2]),
       rows_of<T>(reinterpret_cast<const void*>(ptrs[1]), strides[3], strides[4], strides[5]),
       rows_of<T>(reinterpret_cast<const void*>(ptrs[2]), strides[6], strides[7], strides[8]),
-      static_cast<T*>(out), static_cast<float*>(lse), H, tq, tk, q_off, k_off,
-      causal, scale_log2);
+      static_cast<T*>(out), static_cast<float*>(lse), carry, H, tq, tk,
+      q_off, k_off, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1038,19 +1137,20 @@ cudaError_t bwd(const int64_t* ptrs, const int64_t* strides, const void* lse,
 
 // bf16 with D of 32 or 64 takes the tensor-core kernels, everything else the
 // CUDA-core ones.
-template <typename T>
+template <typename T, bool kStep>
 cudaError_t fwd_d(int d, const int64_t* ptrs, const int64_t* strides, int B,
                   int H, int tq, int tk, int q_off, int k_off, int causal,
-                  float scale_log2, void* out, void* lse, cudaStream_t st) {
+                  float scale_log2, void* out, void* lse, Carry carry,
+                  cudaStream_t st) {
   constexpr bool tc = std::is_same<T, bf16>::value;
   switch (d) {
     case 32:
-      if constexpr (tc) return fwd_tc<32>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
-      else return fwd<T, 32>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
+      if constexpr (tc) return fwd_tc<32, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
+      else return fwd<T, 32, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
     case 64:
-      if constexpr (tc) return fwd_tc<64>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
-      else return fwd<T, 64>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
-    case 128: return fwd<T, 128>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
+      if constexpr (tc) return fwd_tc<64, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
+      else return fwd<T, 64, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
+    case 128: return fwd<T, 128, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1088,9 +1188,30 @@ int hvd_flash_fwd(const int64_t* ptrs, const int64_t* strides, int dtype,
                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
+  const Carry none{nullptr, nullptr, nullptr};
   switch (dtype) {
-    case kF32: return fwd_d<float>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
-    case kBF16: return fwd_d<__nv_bfloat16>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, st);
+    case kF32: return fwd_d<float, false>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, none, st);
+    case kBF16: return fwd_d<__nv_bfloat16, false>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, none, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// One ring hop (K6). ptrs, strides, dtype, d as for hvd_flash_fwd; q_off
+// and k_off are the hop's global positions of q row 0 and k row 0. m, l:
+// contiguous [B, H, tq] f32 (m in natural log units); o: contiguous
+// [B, tq, H, d] f32, unnormalized. All three are updated in place. Returns
+// a cudaError_t.
+int hvd_flash_step(const int64_t* ptrs, const int64_t* strides, int dtype,
+                   int B, int H, int tq, int tk, int d, int q_off, int k_off,
+                   int causal, float scale_log2, void* m, void* l, void* o,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0) return cudaErrorInvalidValue;
+  const Carry carry{static_cast<float*>(m), static_cast<float*>(l),
+                    static_cast<float*>(o)};
+  switch (dtype) {
+    case kF32: return fwd_d<float, true>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, nullptr, nullptr, carry, st);
+    case kBF16: return fwd_d<__nv_bfloat16, true>(d, ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, nullptr, nullptr, carry, st);
   }
   return cudaErrorInvalidValue;
 }

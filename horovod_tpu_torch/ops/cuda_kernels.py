@@ -6,7 +6,8 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
   for the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
 * the Adasum pairwise combine (``adasum_combine_pairs``), CUDA C++ in
   ``csrc/adasum.cu``;
-* flash attention, forward (``flash_attention_fwd``) and backward
+* flash attention, forward (``flash_attention_fwd``), the ring hop of
+  sequence parallelism (``flash_attention_step``) and backward
   (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``;
 * the LayerNorm forward (``layer_norm_fwd``), ``csrc/layer_norm.cu``;
 * the AdamW update over many leaves at once (``adamw_update``),
@@ -65,6 +66,8 @@ _SIGNATURES = {
                       + [_F, _P, _P, _P], _I),
     "hvd_flash_bwd": ("flash_attention", [_P, _P] + [_I] * 10
                       + [_F, _F] + [_P] * 6, _I),
+    "hvd_flash_step": ("flash_attention", [_P, _P] + [_I] * 9
+                       + [_F, _P, _P, _P, _P], _I),
     "hvd_layer_norm_fwd": ("layer_norm", [_P, _I] + [_P] * 5
                            + [_I64, _I64, _F, _P], _I),
     "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
@@ -281,6 +284,7 @@ def adasum_combine_pairs(a, b):
 # Operands are [B, T, H, D] in the reference's layout; the statistics lse
 # and D = rowsum(dO * O) are [B, H, Tq] f32.
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations
 
@@ -302,12 +306,10 @@ def flash_attention_fwd_plain(q, k, v, *, causal, scale, q_off=0, k_off=0):
     out 0 and lse 0 (``pallas_kernels._masked_row_stats``)."""
     s = _scores(q, k, scale, causal, q_off, k_off)
     m = s.amax(-1, keepdim=True)
-    m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
-    e = torch.exp(s - m)
-    l = e.sum(-1, keepdim=True)
-    l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", e / l, v.float()).to(q.dtype)
-    return out, (m + torch.log(l))[..., 0]
+    e = torch.exp(s - torch.where(m == float("-inf"), torch.zeros_like(m), m))
+    l_safe, lse = _masked_row_stats(m, e.sum(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", e / l_safe, v.float()).to(q.dtype)
+    return out, lse[..., 0]
 
 
 def flash_attention_bwd_plain(q, k, v, dout, lse, dd, *, causal, scale,
@@ -415,9 +417,12 @@ def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
     """(dq, dk, dv) of flash attention from q, k, v, dO [B, T, H, D] and
     lse, D = rowsum(dO * O) [B, H, Tq] f32, in ``out_dtype``: q's dtype
     (the default; the single-device path) or f32 (the reference's
-    two-pass and ring contract). Replaces ``pallas_kernels._flash_bwd_fused``
-    and ``_flash_bwd_resident``. One call, two CUDA kernels (dq; dk and
-    dv), deterministic."""
+    two-pass and ring contract). Replaces ``pallas_kernels._flash_bwd_fused``,
+    ``_flash_bwd_resident`` and the streaming branch of ``_flash_bwd_hm``
+    (``:1084``, the ring backward past the fused kernel's dq cap): with f32
+    outputs at a hop's ``q_off`` / ``k_off`` it is the ring backward's hop,
+    exact zeros where ``k_off`` lies past the last q row. One call, two
+    CUDA kernels (dq; dk and dv), deterministic."""
     _check_attention(q, k, v, dout)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -450,6 +455,96 @@ def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
                 dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
         flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+# ------------------------------------------- the ring hop of flash attention
+def flash_attention_step_plain(q, k, v, m, l, o, *, causal, scale, q_off=0,
+                               k_off=0):
+    """One hop of flash accumulation with the kernel's contract, as new
+    tensors: q [B, Tq, H, D], k and v [B, Tk, H, D]; m and l [B, H, Tq] f32,
+    m in natural log units; o [B, Tq, H, D] f32, unnormalized. The
+    softmax runs in base 2 (m enters as m log2 e and leaves as m ln 2,
+    except that a row whose maximum the hop does not raise keeps its m bit
+    for bit); p rounds to q's dtype before it multiplies v. A hop that
+    shows q no key returns the carry itself."""
+    if k.shape[1] == 0 or (causal and k_off > q_off + q.shape[1] - 1):
+        return m, l, o  # no key of the hop is visible
+    s = _scores(q, k, scale * _LOG2E, causal, q_off, k_off)
+    m2 = m * _LOG2E
+    m_new = torch.maximum(m2, s.amax(-1))
+    m_safe = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                         m_new)
+    p = torch.exp2(s - m_safe[..., None])
+    alpha = torch.exp2(m2 - m_safe)
+    l_new = l * alpha + p.sum(-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+    o_new = o * alpha.transpose(1, 2)[..., None] + pv
+    m_out = torch.where(m_new == m2, m, m_new * _LN2)
+    return m_out, l_new, o_new
+
+
+def _check_carry(b, tq, h, d, m, l, o, device) -> None:
+    for what, t, shape in (("m", m, (b, h, tq)), ("l", l, (b, h, tq)),
+                           ("o", o, (b, tq, h, d))):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or tuple(t.shape) != shape or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_step: {what} must be a "
+                             f"contiguous f32 {list(shape)} tensor on "
+                             f"{device}, got {getattr(t, 'shape', type(t))}")
+
+
+def flash_attention_step(q, k, v, m, l, o, *, causal=False, scale=None,
+                         q_off=0, k_off=0):
+    """One hop of ring attention, in place: accumulates q [B, Tq, H, D]
+    against this hop's k and v [B, Tk, H, D] (f32 or bf16, strided views
+    allowed) into the carry m, l [B, H, Tq] and o [B, Tq, H, D] (contiguous
+    f32; see :func:`flash_attention_step_plain` for the contract), and
+    returns ``(m, l, o)``. ``q_off`` / ``k_off``: the hop's global positions
+    of q row 0 and k row 0. A hop that shows q no key leaves the carry bit
+    for bit. Replaces ``pallas_kernels._flash_step_call`` (resident k/v)
+    and ``_flash_step_call_streaming`` (streamed k/v): kernel K6 streams
+    its k/v tiles at any length. On the card D is 32, 64 or 128."""
+    _check_attention(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    _check_carry(b, tq, h, d, m, l, o, q.device)
+    scale = d ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        for t, new in zip((m, l, o), flash_attention_step_plain(
+                q, k, v, m, l, o, causal=causal, scale=scale, q_off=q_off,
+                k_off=k_off)):
+            if new is not t:
+                t.copy_(new)
+        return m, l, o
+    if b and h and tq and tk:
+        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+        ptrs, strides = _operand_table(q, k, v)
+        _launch("hvd_flash_step", q.device, ctypes.addressof(ptrs),
+                ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
+                tk, d, q_off, k_off, int(causal), scale * _LOG2E,
+                m.data_ptr(), l.data_ptr(), o.data_ptr())
+        flash_attention_step.launches += 1
+    return m, l, o
+
+
+def _masked_row_stats(m, l):
+    """(l_safe, lse) from raw flash statistics of any matching shapes: the
+    fully-masked-row convention (l == 0 divides by 1, so out is 0; m ==
+    -inf gives the LSE sentinel 0), on which the backward's recompute of
+    p = exp(s - lse) relies."""
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    lse = torch.where(m == float("-inf"), torch.zeros_like(m), m) + \
+        torch.log(l_safe)
+    return l_safe, lse
+
+
+def finalize_attention_stats(m, l, o, out_dtype):
+    """(m, l, o) of the ring (m, l [B, H, T]; o [B, T, H, D]) -> (out
+    [B, T, H, D] in ``out_dtype``, lse [B, H, T] f32)."""
+    l_safe, lse = _masked_row_stats(m, l)
+    out = (o / l_safe.transpose(1, 2)[..., None]).to(out_dtype)
+    return out, lse
 
 
 # --------------------------------------------------------------- layernorm
@@ -560,7 +655,8 @@ def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
 
 WRAPPERS = (int8_quantize_2d, int8_dequantize_2d, int8_quantize_pack_2d,
             int4_quantize_pack_2d, adasum_combine_pairs, flash_attention_fwd,
-            flash_attention_bwd, layer_norm_fwd, adamw_update)
+            flash_attention_bwd, layer_norm_fwd, adamw_update,
+            flash_attention_step)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -32,32 +32,54 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype)
 
 
+def group_ranks(group=None) -> list:
+    """Global ranks of ``group`` (None: the whole world) in group-rank
+    order; ``[0]`` when no process group exists (standalone)."""
+    if not dist.is_initialized():
+        return [0]
+    return dist.get_process_group_ranks(
+        dist.group.WORLD if group is None else group)
+
+
 def _collective(kind: str, t: torch.Tensor, backend: Optional[str],
-                world: int, root: int = 0) -> torch.Tensor:
+                world: int, root: int = 0, group=None,
+                shift: int = 1) -> torch.Tensor:
     """The one place that issues a collective; returns a new tensor on
     ``t``'s device. ``kind`` is ``all_to_all`` (tiled along dim 0),
-    ``all_gather`` (tiled along dim 0), ``all_reduce`` (sum) or
-    ``broadcast`` (from ``root``). Under gloo a CUDA tensor is staged
-    through host memory here: gloo's all-to-all and all-gather take CPU
-    tensors, and the staging copy is the wire, not a fallback of a
-    kernel."""
+    ``all_gather`` (tiled along dim 0), ``all_reduce`` (sum), ``broadcast``
+    (from global rank ``root``) or ``ppermute`` (send to the rank ``shift``
+    places on in the group, receive from the one ``shift`` places back: the
+    ring's hop). ``world`` is the size of ``group`` (None: every rank).
+    Under gloo a CUDA tensor is staged through host memory here: gloo's
+    all-to-all, all-gather and point-to-point take CPU tensors, and the
+    staging copy is the wire, not a fallback of a kernel."""
     dev = t.device
     if backend == "gloo" and dev.type == "cuda":
         t = t.cpu()
     t = t.contiguous()
     if kind == "broadcast":
         out = t.clone()
-        dist.broadcast(out, src=root)
+        dist.broadcast(out, src=root, group=group)
     elif kind == "all_to_all":
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t)
+        dist.all_to_all_single(out, t, group=group)
     elif kind == "all_gather":
         parts = [torch.empty_like(t) for _ in range(world)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=group)
         out = torch.cat(parts)
     elif kind == "all_reduce":
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    elif kind == "ppermute":
+        ranks = group_ranks(group)
+        n, i = len(ranks), ranks.index(dist.get_rank())
+        out = torch.empty_like(t)
+        # both posted before either waits: a blocking send first would
+        # leave every rank of the ring waiting on its neighbour
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, t, ranks[(i + shift) % n], group),
+                dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)]):
+            work.wait()
     else:
         raise ValueError(f"unknown collective {kind!r}")
     return out.to(dev)

@@ -118,3 +118,56 @@ def test_layer_norm_and_adamw_match_twins():
         for a, c in zip(got, want):
             assert torch.equal(a, c)
     assert ck.launch_counts()["adamw_update"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_step_matches_twin_on_three_hops(dtype):
+    """K6 on rank 1 of a 3-rank causal ring, the carry chained: the
+    diagonal hop, the hop below it and the fully masked hop above it, which
+    leaves the carry bit for bit; m to 1e-5 (1 + |m|), l to 1e-5 of its
+    value (both sum the unrounded p), o to 1e-5 (f32) or 2^-7 (bf16: p
+    rounds to bf16 against another running maximum) of its largest
+    |value|."""
+    gen = _gen()
+    t, h, d = 96, 2, 64
+    q, k, v = (torch.randn(1, 3 * t, h, d, generator=gen, device="cuda").to(
+        dtype) for _ in range(3))
+    rel = 1e-5 if dtype == torch.float32 else BF16_EPS
+    carry = [torch.full((1, h, t), float("-inf"), device="cuda"),
+             torch.zeros(1, h, t, device="cuda"),
+             torch.zeros(1, t, h, d, device="cuda")]
+    twin = [c.clone() for c in carry]
+    qb = q[:, t:2 * t]
+    for src in (1, 0, 2):
+        kb, vb = k[:, src * t:(src + 1) * t], v[:, src * t:(src + 1) * t]
+        kw = dict(causal=True, scale=0.125, q_off=t, k_off=src * t)
+        before = [c.clone() for c in carry]
+        ck.flash_attention_step(qb, kb, vb, *carry, **kw)
+        twin = list(ck.flash_attention_step_plain(qb, kb, vb, *twin, **kw))
+        torch.cuda.synchronize()
+        if src == 2:
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(carry, before))
+        m, l, o = carry
+        assert ((m - twin[0]).abs() <= 1e-5 * (1 + twin[0].abs())).all()
+        assert ((l - twin[1]).abs() <= 1e-5 * twin[1]).all()
+        _rel_close(o, twin[2], rel)
+    assert ck.launch_counts()["flash_attention_step"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hop_backward_above_the_diagonal_gives_exact_zeros(dtype):
+    """K7 with f32 outputs where every key lies past the last q row
+    (k_off > q_off + Tq - 1, far past it too): dq, dk and dv are exact
+    zeros, as the ring's backward needs on the hops above the diagonal."""
+    gen = _gen()
+    q, k, v, do = (torch.randn(1, 200, 2, 64, generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    lse = torch.randn(1, 2, 200, generator=gen, device="cuda")
+    dd = torch.randn(1, 2, 200, generator=gen, device="cuda")
+    for k_off in (200, 4096):
+        for g in ck.flash_attention_bwd(q, k, v, do, lse, dd, causal=True,
+                                        out_dtype=torch.float32, q_off=0,
+                                        k_off=k_off):
+            torch.cuda.synchronize()
+            assert g.dtype == torch.float32 and not g.any()
