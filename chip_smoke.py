@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
-``flash_attention.cu``, ``layer_norm.cu`` and ``adamw.cu``, one ``nvcc``
-each, all at once, into ``build/torch_kernels/``), then:
+``flash_attention.cu``, ``layer_norm.cu``, ``adamw.cu`` and ``matmul.cu``,
+one ``nvcc`` each, all at once, into ``build/torch_kernels/``), then:
 
 1. holds each wire kernel against its plain-PyTorch twin on the card, byte
    for byte, at the main-path shape (the flat ResNet-50 gradient as
@@ -67,11 +67,35 @@ each, all at once, into ``build/torch_kernels/``), then:
    and agreement with one world-1 step on the whole sequence, whose
    attention is PyTorch's own; times a ring hop and the gradient allreduce;
 6d. does the same at medium widths, 2 layers, on a dp=2 x sp=2 grid with a
-   global batch of 2 x 4096.
+   global batch of 2 x 4096;
+7. holds the matmul kernel K10 (``matmul_2d``) against its twin on the
+   card, to the stated tolerance: the fused matmul + reduce-scatter ring's
+   chunks at GPT-2-medium widths and tp = 4 (the row-parallel MLP
+   ``[2048, 1024] @ [1024, 1024]`` and the LM head ``[2048, 256] @ [256,
+   32768]``, bf16), f32, shapes of several tiles in M, K and N, and M = 8;
+   checks two launches byte-equal; times kernel, twin and ``torch.matmul``
+   (run right after phase 5, early in the process);
+7b. runs ``matmul_reduce_scatter`` on world size 4 (gloo, one card) at
+   those chunks' full operands, ``x [8192, 1024] @ w [1024, 1024]`` and
+   ``x [8192, 256] @ w [256, 32768]`` bf16, different on every rank: rank
+   p's chunk against the f64 dense sum, the unfused reference (two faulted
+   rings, one missing a partial and one adding in float8, must fail the
+   same bound), 4 K10 launches a call a rank, and the time of a call;
+7c. trains GPT-2-medium (24 layers) on a dp=1 x tp=4 grid, global batch 8
+   x 1024, for 2 steps through ``make_tp_train_step`` (24 K5 and 24 K7
+   launches a step a rank, on a rank's 4 heads) and checks replicated
+   parameters bit-identical on all ranks and agreement with one world-1
+   step, whose attention is PyTorch's own; peak memory a rank;
+7d. does the same for the 3D hybrid on a dp=2 x tp=2 x sp=2 grid (8
+   processes), medium widths, 2 layers, global batch 2 x 4096, through
+   ``make_hybrid_train_step`` (ring attention: K6 / K7), each tensor shard
+   bit-identical on the ranks that hold it.
 
 ``--fault skip-hop`` or ``--fault shift-k-off`` breaks ring attention on
-purpose and runs phases 6c and 6d only, to show that their agreement
-checks fail a wrong ring: it exits 0 when both phases fail them.
+purpose and runs phases 6c and 6d only; ``--fault drop-tp-reduce`` makes
+block 0's row-parallel mlp_out skip its sum over tp and runs phases 7c and
+7d only. Each shows that the phases' agreement checks fail a wrong program:
+it exits 0 when both phases fail them.
 
 Exits non-zero, with no result line, when a phase fails or no CUDA device
 is present. The last line of standard output is
@@ -93,7 +117,8 @@ from multiprocessing import get_context
 import torch
 
 BLOCK = 256
-LIBRARIES = ("wire_quant", "adasum", "flash_attention", "layer_norm", "adamw")
+LIBRARIES = ("wire_quant", "adasum", "flash_attention", "layer_norm", "adamw",
+             "matmul")
 SOURCE = "horovod_tpu_torch/csrc/wire_quant.cu"
 ADASUM_SOURCE = "horovod_tpu_torch/csrc/adasum.cu"
 REPLACES = {
@@ -110,6 +135,7 @@ REPLACES = {
                             "horovod_tpu/ops/pallas_kernels.py:457",
     "layer_norm_fwd": "horovod_tpu/ops/pallas_kernels.py:1489",
     "adamw_update": "horovod_tpu/optim/fused.py:86",
+    "matmul_2d": "horovod_tpu/ops/pallas_kernels.py:1819",
 }
 WIRE = ("int8_quantize_2d", "int8_dequantize_2d", "int8_quantize_pack_2d",
         "int4_quantize_pack_2d")
@@ -1616,12 +1642,13 @@ def sdpa_attention(q, k, v):
             is_causal=True).transpose(1, 2)
 
 
-def world1_agreement(cfg, x, y, snapshot, loss_sp) -> dict:
+def world1_agreement(cfg, x, y, snapshot, loss_sp, settled_rel) -> dict:
     """One world-1 step of the same model on the whole global batch, on the
     card with PyTorch's attention (``sdpa_attention``), against the
     sequence-parallel step's loss, its world-averaged gradients and its
     parameters after its first step (``snapshot``: name -> (parameter,
-    gradient) on the host)."""
+    gradient) on the host). Elements whose world-1 gradient exceeds
+    ``settled_rel`` of its tensor's largest |g| count as settled."""
     from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1637,7 +1664,7 @@ def world1_agreement(cfg, x, y, snapshot, loss_sp) -> dict:
         grad_rel[n] = float((g - snapshot[n][1].to(dev).float()).abs().max()
                             / top)
         # elements whose gradient's sign the tolerance cannot flip
-        settled[n] = (g.abs() > SP_GRAD_REL * top).cpu()
+        settled[n] = (g.abs() > settled_rel * top).cpu()
     opt.step()
     loss = loss.item()
     diffs = {n: (p.detach().cpu() - snapshot[n][0]).abs()
@@ -1777,7 +1804,8 @@ def sp_train_worker(dp: int, sp: int, layers: int, batch: int, seq: int,
     dist.barrier()
     marks["hash"] = time.time()
     if hvd.rank() == 0:
-        res["world1"] = world1_agreement(cfg, x, y, snapshot, losses[0])
+        res["world1"] = world1_agreement(cfg, x, y, snapshot, losses[0],
+                                         SP_LIMITS[1])
     marks["world1"] = time.time()
     res["marks"] = marks
     return res
@@ -1803,16 +1831,19 @@ def sp_train_worker(dp: int, sp: int, layers: int, batch: int, seq: int,
 SP_LOSS_REL, SP_GRAD_REL = 3e-5, 5e-2
 SP_SETTLED_ATOL = 1e-6
 SP_PARAM_ATOL, SP_PARAM_SHARE = 1e-5, 0.97
+SP_LIMITS = (SP_LOSS_REL, SP_GRAD_REL, SP_SETTLED_ATOL, SP_PARAM_ATOL,
+             SP_PARAM_SHARE)
 
 
-def sp_agreement(w1) -> dict:
-    """Each agreement check of ``world1_agreement``'s readings: name ->
-    passed."""
-    return {"loss": w1["loss_rel"] <= SP_LOSS_REL,
-            "gradients": w1["grad_rel_max"] <= SP_GRAD_REL,
-            "settled parameters": w1["settled_max"] <= SP_SETTLED_ATOL,
-            "parameter share":
-                w1["share"][str(SP_PARAM_ATOL)] >= SP_PARAM_SHARE}
+def agreement(w1, limits) -> dict:
+    """Each agreement check of ``world1_agreement``'s readings against
+    ``limits`` (loss_rel, grad_rel, settled_atol, param_atol, param_share):
+    name -> passed."""
+    loss_rel, grad_rel, settled_atol, atol, share = limits
+    return {"loss": w1["loss_rel"] <= loss_rel,
+            "gradients": w1["grad_rel_max"] <= grad_rel,
+            "settled parameters": w1["settled_max"] <= settled_atol,
+            "parameter share": w1["share"][str(atol)] >= share}
 
 
 def phase_sp_train(label: str, dp: int, sp: int, layers: int, batch: int,
@@ -1837,7 +1868,7 @@ def phase_sp_train(label: str, dp: int, sp: int, layers: int, batch: int,
     grid = [r["grid"] for r in ranks] == [[i, j] for i in range(dp)
                                           for j in range(sp)]
     w1 = ranks[0]["world1"]
-    agree = sp_agreement(w1)
+    agree = agreement(w1, SP_LIMITS)
     finite = all(math.isfinite(v) for r in ranks for v in r["losses"])
     seen = [{k: v / steps for k, v in r["counts"].items() if v} for r in ranks]
     peak = [round(r["peak_memory_bytes"] / 2**30, 2) for r in ranks]
@@ -1879,14 +1910,441 @@ def phase_sp_train(label: str, dp: int, sp: int, layers: int, batch: int,
     return {"ranks": ranks, "seconds": seconds, "agreement": agree}
 
 
+# ---------------------------------------------------------- phases 7-7d
+# K10 against its twin torch.matmul(x.float(), w.float()).to(dtype), TF32
+# off: both sum K products in f32 in different orders, so elementwise
+# |kernel - twin| <= MM_C K 2^-24 (|x| @ |w|) plus one unit in the last
+# place of the output (the rounding of a sum the two place on either side
+# of a tie or a boundary).
+MM_C = 2
+MM_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
+# Tensor parallelism at GPT-2-medium widths (tp = 4 splits d_ff 4096 and
+# the LM head's d_model 1024 into 4): the chunks of the fused matmul +
+# reduce-scatter ring over 8 x 1024 tokens, rows 8192 / 4.
+MM_CHUNKS = {"mlp_out": (2048, 1024, 1024), "lm_head": (2048, 256, 32768)}
+TP = dict(tp=4, batch=8)
+HYBRID = dict(dp=2, tp=2, sp=2, layers=2, batch=2, seq=4096)
+
+
+def mm_tolerance(x, w, k_out, t_out) -> torch.Tensor:
+    """The elementwise bound of K10 against its twin (see MM_C)."""
+    mag = x.float().abs() @ w.float().abs()
+    return (MM_C * x.shape[1] * 2.0 ** -24 * mag
+            + MM_ULP[x.dtype] * torch.maximum(k_out.float().abs(),
+                                              t_out.float().abs()))
+
+
+def phase_matmul_kernel(rate: float) -> dict:
+    """Phase 7: K10 against its twin on the card at the ring's two chunk
+    shapes (bf16), in f32, at a shape where M, K and N each take more than
+    one tile (bf16 and f32) and at the smallest M; two launches byte-equal;
+    times of kernel, twin and ``torch.matmul`` (cuBLAS) at the chunks."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = [(f"{name} chunk", (m, k, n), torch.bfloat16)
+             for name, (m, k, n) in MM_CHUNKS.items()]
+    cases += [("f32", (256, 512, 384), torch.float32),
+              ("multi-tile bf16", (520, 384, 640), torch.bfloat16),
+              ("multi-tile f32", (520, 384, 640), torch.float32),
+              ("M=8 bf16", (8, 128, 256), torch.bfloat16)]
+    checks, worst, timed = [], 0.0, {}
+    for what, (m, k, n), dt in cases:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        w = torch.randn(k, n, generator=gen, device="cuda").to(dt)
+        got = ck.matmul_2d(x, w)
+        again = ck.matmul_2d(x, w)
+        want = ck.matmul_2d_plain(x, w)
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / mm_tolerance(x, w, got, want)).max())
+        err = float(diff.max())
+        ok = (ratio <= 1 and bits_equal(got, again) and got.dtype == dt
+              and bool(torch.isfinite(got).all()))
+        worst = max(worst, err)
+        checks.append((what, ok, err, ratio))
+        log(f"  matmul_2d {what} [{m}, {k}] @ [{k}, {n}] {dt}: max |kernel "
+            f"- twin| {err:.3e} = {ratio:.3f} of its bound (two launches "
+            f"byte-equal {bits_equal(got, again)}): ok={ok}")
+        if what.endswith("chunk"):
+            timed[what] = (x, w)
+    failed = [c for c in checks if not c[1]]
+    log(f"phase 7: K10 against its twin on the card: {not failed} "
+        f"({len(checks)} checks)")
+    if failed:
+        raise AssertionError(f"K10 disagrees with its twin: {failed}")
+    out = {}
+    for what, (x, w) in timed.items():
+        (m, k), n = x.shape, w.shape[1]
+        nbytes = (m * k + k * n + m * n) * x.element_size()
+        ops = 2 * m * k * n
+        bytes_ms, ops_ms = nbytes / rate * 1e3, ops / BF16_RATE * 1e3
+        out[what] = {
+            "shape": [m, k, n], "ms": cuda_ms(lambda: ck.matmul_2d(x, w), 20),
+            "device_ms": device_ms(lambda: ck.matmul_2d(x, w), 10,
+                                   ("hvd_mm",)),
+            "plain_ms": cuda_ms(lambda: ck.matmul_2d_plain(x, w), 10),
+            "library_ms": cuda_ms(lambda: torch.matmul(x, w), 20),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops}
+        r = out[what]
+        log(f"  matmul_2d {what} [{m}, {k}] @ [{k}, {n}] bf16: kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"(torch.matmul), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({nbytes} bytes, {ops} operations) on {CARD}")
+    row = dict(out["lm_head chunk"])
+    row.update(name="matmul_2d", route="cuda", launches=0,
+               source="horovod_tpu_torch/csrc/matmul.cu",
+               replaces=REPLACES["matmul_2d"], max_abs_err=worst,
+               library="torch.matmul (cuBLAS)", chunks=out, checks=checks)
+    return row
+
+
+def mm_rs_worker(shapes, calls: int) -> dict:
+    """One rank of phase 7b: for each (rows, kl, n), every rank's seeded
+    bf16 x [rows, kl] and w [kl, n] (this rank's and the others', for the
+    f64 dense sum of this rank's chunk); ``matmul_reduce_scatter`` ``calls``
+    times (K10's launches counted from 0 around them) and its unfused
+    reference, each timed on the host clock after a barrier."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.ops.matmul import (matmul_reduce_scatter,
+                                              matmul_reduce_scatter_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the unfused reference's product sums in f32 and rounds once, as the
+    # TPU's does: no split-K partial sums rounded to bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev, p, m = hvd.device(), hvd.rank(), hvd.size()
+    res = {"backend": hvd.backend(), "shapes": {}}
+    counts = {}
+    for rows, kl, n in shapes:
+        xs, ws = [], []
+        for r in range(m):
+            gen = torch.Generator(device=dev).manual_seed(1000 * r + kl)
+            xs.append(torch.randn(rows, kl, generator=gen,
+                                  device=dev).to(torch.bfloat16))
+            ws.append((torch.randn(kl, n, generator=gen, device=dev)
+                       / kl ** 0.5).to(torch.bfloat16))
+        c = rows // m
+        chunk = slice(p * c, (p + 1) * c)
+        # each of the ring's 2m - 1 bf16 roundings (m partials, m - 1 adds)
+        # is at most 2^-8 times a value no larger than sum_r |P_r|, with
+        # P_r = x_r @ w_r; K10's f32 sums add K 2^-24 sum_r |x_r| @ |w_r|;
+        # the factor 2 covers the second-order terms
+        dense = torch.zeros(c, n, dtype=torch.float64, device=dev)
+        tol = torch.zeros(c, n, dtype=torch.float64, device=dev)
+        for r in range(m):
+            part = xs[r][chunk].double() @ ws[r].double()
+            dense += part
+            tol += 2 * m * 2.0 ** -8 * part.abs()
+            tol += 2 * kl * 2.0 ** -24 * (xs[r][chunk].double().abs()
+                                          @ ws[r].double().abs())
+            if r == p:   # the partial the ring's last hop adds on rank p
+                own = part
+            del part
+        # two faulted rings the gate must refuse: the last hop's partial
+        # dropped, and every add rounded to float8 e4m3 (u = 2^-4)
+        lowp = xs[0][chunk].float() @ ws[0].float()
+        for r in range(1, m):
+            lowp = (lowp.to(torch.float8_e4m3fn).float()
+                    + xs[r][chunk].float() @ ws[r].float())
+        lowp = lowp.to(torch.float8_e4m3fn).double()
+
+        def clock(fn):
+            torch.cuda.synchronize(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize(dev)
+            return y, (time.perf_counter() - t0) * 1e3
+
+        ck.reset_launch_counts()
+        rings = [clock(lambda: matmul_reduce_scatter(xs[p], ws[p]))
+                 for _ in range(calls)]
+        for k, v in ck.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        refs = [clock(lambda: matmul_reduce_scatter_reference(xs[p], ws[p]))
+                for _ in range(calls)]
+        ring, ref = rings[-1][0], refs[-1][0]
+
+        def ratio(y, want=dense, bound=tol):
+            return float(((y.double() - want).abs() / bound).max())
+
+        res["shapes"][f"{rows}x{kl}x{n}"] = {
+            "ring_ratio": ratio(ring), "ref_ratio": ratio(ref),
+            # both lie within tol of the dense sum, so within 2 tol of
+            # each other
+            "ring_vs_ref_ratio": ratio(ring, ref.double(), 2 * tol),
+            "dropped_ratio": ratio(ring.double() - own),
+            "float8_ratio": ratio(lowp),
+            "ring_vs_ref": float((ring.float() - ref.float()).abs().max()),
+            "max_abs_err": float((ring.double() - dense).abs().max()),
+            "shape": list(ring.shape), "dtype": str(ring.dtype),
+            "launches_per_call": ck.launch_counts()["matmul_2d"] / calls,
+            "ring_ms": [t for _, t in rings], "ref_ms": [t for _, t in refs],
+            "finite": bool(torch.isfinite(ring).all())}
+        del xs, ws, dense, tol, own, lowp, rings, refs, ring, ref
+        torch.cuda.empty_cache()
+    res["counts"] = counts
+    return res
+
+
+def phase_matmul_reduce_scatter() -> dict:
+    """Phase 7b: ``matmul_reduce_scatter`` at world 4 (gloo, one card) on
+    the full operands of phase 7's two chunks: rank p holds chunk p, within
+    the ring's bound of the f64 dense sum (as is the unfused reference), K10
+    launched 4 times a call on each rank."""
+    from horovod_tpu_torch import testing
+
+    m, calls = TP["tp"], 3
+    shapes = [(m * rows, k, n) for rows, k, n in MM_CHUNKS.values()]
+    t0 = time.perf_counter()
+    ranks = testing.run_cluster(mm_rs_worker, np=m, device="cuda",
+                                args=(shapes, calls), timeout=600)
+    ok = all(r["backend"] == "gloo" for r in ranks)
+    for key in ranks[0]["shapes"]:
+        rs = [r["shapes"][key] for r in ranks]
+        rows, kl, n = (int(v) for v in key.split("x"))
+        good = all(s["ring_ratio"] <= 1 and s["ref_ratio"] <= 1
+                   and s["ring_vs_ref_ratio"] <= 1 and s["dropped_ratio"] > 1
+                   and s["float8_ratio"] > 1
+                   and s["shape"] == [rows // m, n] and s["finite"]
+                   and s["launches_per_call"] == m
+                   and s["dtype"] == "torch.bfloat16" for s in rs)
+        log(f"phase 7b: matmul_reduce_scatter world {m} (gloo, one card), x "
+            f"[{rows}, {kl}] @ w [{kl}, {n}] bf16 a rank: rank p's "
+            f"[{rows // m}, {n}] chunk against the f64 dense sum, worst "
+            f"{max(s['ring_ratio'] for s in rs):.4f} of the ring's bound "
+            f"2 m 2^-8 sum_r |x_r @ w_r| + 2 K 2^-24 sum_r |x_r| @ |w_r| "
+            f"(unfused reference {max(s['ref_ratio'] for s in rs):.4f}; "
+            f"ring - reference max {max(s['ring_vs_ref'] for s in rs):.3e} "
+            f"= {max(s['ring_vs_ref_ratio'] for s in rs):.4f} of twice the "
+            f"bound); faulted rings, which must exceed it: last hop's partial "
+            f"dropped {min(s['dropped_ratio'] for s in rs):.1f}, adds in "
+            f"float8 e4m3 {min(s['float8_ratio'] for s in rs):.2f} of the "
+            f"bound; K10 launches per call "
+            f"{[s['launches_per_call'] for s in rs]} (want {m}); ms per call "
+            f"ring {[[round(t, 1) for t in s['ring_ms']] for s in rs]}, "
+            f"reference {[[round(t, 1) for t in s['ref_ms']] for s in rs]} "
+            f"(host clock, gloo staging, 4 ranks on one card) on {CARD}: "
+            f"ok={good}")
+        ok = ok and good
+    if not ok:
+        raise AssertionError("matmul_reduce_scatter failed its checks")
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def inject_tp_fault(net) -> None:
+    """Break tensor parallelism on purpose (``--fault drop-tp-reduce``):
+    block 0's row-parallel mlp_out returns its local partial product (plus
+    the bias), never summed over tp."""
+    import torch.nn.functional as F
+
+    layer = net.blocks[0].mlp_out
+
+    def local_partial(x):
+        return (F.linear(x.to(layer.dtype), layer.weight.to(layer.dtype))
+                + layer.bias.to(layer.dtype))
+
+    layer.forward = local_partial
+
+
+def tp_train_worker(dp: int, tp: int, sp: int, layers: int, batch: int,
+                    seq: int, steps: int, fault=None) -> dict:
+    """One rank of phases 7c (``sp == 1``: ``make_dp_tp_mesh``,
+    ``shard_params_tp``, ``make_tp_train_step``) and 7d (the hybrid:
+    ``make_dp_tp_sp_mesh``, ``hybrid_model``, ``shard_params_hybrid``,
+    ``make_hybrid_train_step``): GPT-2-medium widths at ``layers`` layers,
+    seed-0 weights, ``steps`` AdamW steps on the seeded global batch
+    ``[batch, seq]``, launches counted from 0 just before the steps. After
+    the first step every rank gathers the full parameters and gradients
+    over tp; rank 0 then takes one world-1 step of the same model once the
+    other ranks have freed their memory. ``fault``: ``inject_tp_fault``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.parallel import (hybrid_model, make_dp_tp_mesh,
+                                            make_dp_tp_sp_mesh,
+                                            make_hybrid_train_step,
+                                            make_tp_train_step,
+                                            shard_params_hybrid,
+                                            shard_params_tp)
+    from horovod_tpu_torch.parallel.tensor import (full_state_dict_tp,
+                                                   torch_param_spec)
+    from horovod_tpu_torch.train import synthetic_lm_tokens
+
+    marks = {"start": time.time()}
+    dev = hvd.device()
+    cfg = dict(vocab_size=MEDIUM["vocab"], num_layers=layers,
+               num_heads=MEDIUM["heads"], d_model=MEDIUM["d"],
+               max_seq_len=seq, dtype=torch.bfloat16, seed=0)
+    toks = torch.from_numpy(synthetic_lm_tokens(batch, seq, MEDIUM["vocab"],
+                                                0, 1))
+    x, y = toks[:, :-1], toks[:, 1:]
+    if sp == 1:
+        mesh = make_dp_tp_mesh(dp, tp)
+        net = shard_params_tp(TransformerLM(**cfg), mesh).to(dev)
+        make_step = make_tp_train_step
+    else:
+        mesh = make_dp_tp_sp_mesh(dp, tp, sp)
+        net = shard_params_hybrid(hybrid_model(TransformerLM, mesh, **cfg),
+                                  mesh).to(dev)
+        make_step = make_hybrid_train_step
+    if fault:
+        inject_tp_fault(net)
+    marks["model"] = time.time()
+    step = make_step(net, torch.optim.AdamW(
+        net.parameters(), lr=SP_LR, weight_decay=0.01, fused=True), mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    losses, step_ms, snapshot = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:  # the gathers launch no kernel
+            full = full_state_dict_tp(net, mesh)
+            grads = full_state_dict_tp(net, mesh, grads=True)
+            if hvd.rank() == 0:
+                snapshot = {n: (full[n].cpu(), grads[n].cpu()) for n in full}
+            del full, grads
+    marks["steps"] = time.time()
+    counts = ck.launch_counts()
+
+    def digest(replicated: bool) -> str:
+        h = hashlib.sha256()
+        for name, prm in sorted(net.named_parameters()):
+            if ("tp" not in torch_param_spec(name)) == replicated:
+                h.update(name.encode())
+                h.update(prm.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    res = {"counts": counts, "losses": losses, "step_ms": step_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "replicated_sha256": digest(True), "shard_sha256": digest(False),
+           "grid": [mesh.dp_rank, mesh.tp_rank, mesh.sp_rank],
+           "backend": hvd.backend()}
+    del step, net
+    torch.cuda.empty_cache()
+    dist.barrier()
+    marks["hash"] = time.time()
+    if hvd.rank() == 0:
+        res["world1"] = world1_agreement(cfg, x, y, snapshot, losses[0],
+                                         TP_LIMITS[1])
+    marks["world1"] = time.time()
+    res["marks"] = marks
+    return res
+
+
+# The tensor-parallel and 3D steps against one world-1 step of the same
+# model on the whole batch with PyTorch's attention, by the checks and in
+# the order of SP_LIMITS. Each limit lies between the sound runs' readings
+# and those of a dropped row-parallel reduce (``--fault drop-tp-reduce``),
+# on an H100, 7c / 7d (PERF.md):
+# * the first loss to 5e-5 relative (sound 1.9e-5 / 1.8e-7; faulted
+#   1.3e-3 / 1.2e-4);
+# * each gradient to 5e-2 of its tensor's largest |g| (sound 2.2e-2 /
+#   1.1e-2, bf16 partial products summed over tp; faulted 2.2 / 1.2);
+# * settled elements within 1e-6 (sound 1.2e-7; faulted 6.0e-4, 2 lr);
+# * at least 0.97 of all elements within 1e-5 (sound 0.986 / 0.997;
+#   faulted 0.605 / 0.789).
+TP_LIMITS = (5e-5, 5e-2, 1e-6, 1e-5, 0.97)
+
+
+def phase_tp_train(label: str, dp: int, tp: int, sp: int, layers: int,
+                   batch: int, seq: int, steps: int = 2, fault=None) -> dict:
+    """Phases 7c / 7d: ``tp_train_worker`` on dp * tp * sp ranks sharing the
+    card (gloo); launches, bit-identical parameters (each tensor shard on
+    the ranks that hold it, the replicated ones on every rank) and
+    agreement with the world-1 step. With ``fault``, the readings only: the
+    caller checks that the agreement fails."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    n = dp * tp * sp
+    ranks = testing.run_cluster(tp_train_worker, np=n, device="cuda",
+                                args=(dp, tp, sp, layers, batch, seq, steps,
+                                      fault), timeout=900)
+    seconds = time.perf_counter() - t0
+    per_step = ({"flash_attention_fwd": layers, "flash_attention_bwd": layers}
+                if sp == 1 else {"flash_attention_step": layers * sp,
+                                  "flash_attention_bwd": layers * sp})
+    launched = all(r["counts"][k] == steps * per_step.get(k, 0)
+                   for r in ranks for k in r["counts"])
+    replicated = len({r["replicated_sha256"] for r in ranks}) == 1
+    shards = {}
+    for r in ranks:
+        shards.setdefault(r["grid"][1], set()).add(r["shard_sha256"])
+    sharded = (all(len(s) == 1 for s in shards.values())
+               and len({next(iter(s)) for s in shards.values()}) == tp)
+    grid = [r["grid"] for r in ranks] == [[d, t, s] for d in range(dp)
+                                          for t in range(tp)
+                                          for s in range(sp)]
+    w1 = ranks[0]["world1"]
+    agree = agreement(w1, TP_LIMITS)
+    loss_rel, grad_rel, settled_atol, atol, share = TP_LIMITS
+    finite = all(math.isfinite(v) for r in ranks for v in r["losses"])
+    seen = [{k: v / steps for k, v in r["counts"].items() if v} for r in ranks]
+    peak = [round(r["peak_memory_bytes"] / 2**30, 2) for r in ranks]
+    ok = (launched and replicated and sharded and grid and finite
+          and all(agree.values())
+          and all(r["backend"] == "gloo" for r in ranks))
+    log(f"phase {label}{f' with fault {fault}' if fault else ''}: dp={dp} x "
+        f"tp={tp} x sp={sp} (gloo, one card), GPT-2-medium widths, {layers} "
+        f"layers, global batch {batch} x {seq}, {steps} AdamW steps: "
+        f"launches per rank per step {seen} (want {per_step}); replicated "
+        f"parameters bit-identical on all {n} ranks {replicated}, each tensor "
+        f"shard on the ranks that hold it {sharded}; losses "
+        f"{[[round(v, 5) for v in r['losses']] for r in ranks]}; against one "
+        f"world-1 step on the card (SDPA attention): loss {w1['loss']:.6f}, "
+        f"rel diff {w1['loss_rel']:.3e} (<= {loss_rel:g}), gradients "
+        f"{w1['grad_rel_max']:.3e} of the tensor's largest |g| (<= "
+        f"{grad_rel:g}; worst {w1['grad_rel_worst']}, median "
+        f"{w1['grad_rel_median']:.3e}), settled parameters "
+        f"({w1['settled_share']:.4f} of all) max diff "
+        f"{w1['settled_max']:.3e} (<= {settled_atol:g}), all parameters "
+        f"max diff {w1['param_max']:.3e}, share within {atol:g} "
+        f"{w1['share'][str(atol)]:.6f} (>= {share}) "
+        f"{w1['share']}; {agree}; step ms per rank "
+        f"{[[round(v, 1) for v in r['step_ms']] for r in ranks]}, peak "
+        f"memory GiB {peak} (information: {n} processes share one card over "
+        f"gloo); {seconds:.1f} s on {CARD}: ok={ok}")
+    if not ok and not fault:
+        raise AssertionError(f"tensor-parallel training ({label}) failed its "
+                             f"checks")
+    return {"ranks": ranks, "seconds": seconds, "agreement": agree}
+
+
+# the (dp, sp) runs of phases 6c and 6d, the (dp, tp, sp) runs of 7c and
+# 7d: (dp, [tp,] sp, layers, global batch, sequence)
+SP_RUNS = {"6c": (1, RING["sp"], MEDIUM["layers"], 1, RING["seq"]),
+           "6d": (2, 2, 2, 2, RING["seq"] // RING["sp"])}
+TP_RUNS = {"7c": (1, TP["tp"], 1, MEDIUM["layers"], TP["batch"],
+                  MEDIUM["seq"]),
+           "7d": (HYBRID["dp"], HYBRID["tp"], HYBRID["sp"], HYBRID["layers"],
+                  HYBRID["batch"], HYBRID["seq"])}
+FAULTS = {"skip-hop": (phase_sp_train, SP_RUNS),
+          "shift-k-off": (phase_sp_train, SP_RUNS),
+          "drop-tp-reduce": (phase_tp_train, TP_RUNS)}
+
+
 def fault_check(fault: str) -> int:
-    """Phases 6c and 6d with a broken ring: 0 when each one's agreement
-    with the world-1 step fails (each check's verdict is printed)."""
+    """Phases 6c and 6d with a broken ring, or 7c and 7d with a dropped
+    row-parallel reduce: 0 when each one's agreement with the world-1 step
+    fails (each check's verdict is printed)."""
+    phase, runs = FAULTS[fault]
     caught = {}
-    for label, args in (("6c", (1, RING["sp"], MEDIUM["layers"], 1,
-                                RING["seq"])),
-                        ("6d", (2, 2, 2, 2, RING["seq"] // RING["sp"]))):
-        agree = phase_sp_train(label, *args, fault=fault)["agreement"]
+    for label, args in runs.items():
+        agree = phase(label, *args, fault=fault)["agreement"]
         caught[label] = {k: not v for k, v in agree.items()}
     print(json.dumps({"fault": fault, "caught": caught}), flush=True)
     return 0 if all(any(c.values()) for c in caught.values()) else 1
@@ -1896,11 +2354,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH", default=None,
                         help="also write the full report to PATH as JSON")
-    parser.add_argument("--fault", choices=("skip-hop", "shift-k-off"),
-                        default=None,
-                        help="break ring attention on purpose and run "
-                        "phases 6c and 6d only; exits 0 when each phase's "
-                        "agreement with the world-1 step fails")
+    parser.add_argument("--fault", choices=sorted(FAULTS), default=None,
+                        help="break ring attention (skip-hop, shift-k-off: "
+                        "phases 6c and 6d only) or a row-parallel reduce "
+                        "(drop-tp-reduce: phases 7c and 7d only) on purpose; "
+                        "exits 0 when each phase's agreement with the "
+                        "world-1 step fails")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1935,6 +2394,7 @@ def main(argv=None) -> int:
     lm_kernels = phase_lm_kernels(rate)
     lm_checks = lm_kernels.pop("checks")
     kernels.update(lm_kernels)
+    kernels["matmul_2d"] = phase_matmul_kernel(rate)
     world1 = phase_world1()
     breakdown = phase_breakdown(world1["batch"])
     small = phase_small_agreement()
@@ -1956,9 +2416,11 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"], ring[f"{name}_max_abs_err"])
     torch.cuda.empty_cache()  # the four-rank phases share the card
     sp_attention = phase_sp_attention()
-    sp_long = phase_sp_train("6c", 1, RING["sp"], MEDIUM["layers"], 1,
-                             RING["seq"])
-    sp_grid = phase_sp_train("6d", 2, 2, 2, 2, RING["seq"] // RING["sp"])
+    sp_long = phase_sp_train("6c", *SP_RUNS["6c"])
+    sp_grid = phase_sp_train("6d", *SP_RUNS["6d"])
+    mm_rs = phase_matmul_reduce_scatter()
+    tp_long = phase_tp_train("7c", *TP_RUNS["7c"])
+    tp_hybrid = phase_tp_train("7d", *TP_RUNS["7d"])
 
     # each main-path run counted its launches from 0
     runs = ([world1["counts"]]
@@ -1969,7 +2431,9 @@ def main(argv=None) -> int:
             + [r["counts"] for r in lm2["ranks"]]
             + [r[m]["counts"] for r in sp_attention["ranks"]
                for m in ("ring", "ulysses")]
-            + [r["counts"] for r in sp_long["ranks"] + sp_grid["ranks"]])
+            + [r["counts"] for r in sp_long["ranks"] + sp_grid["ranks"]]
+            + [r["counts"] for r in mm_rs["ranks"] + tp_long["ranks"]
+               + tp_hybrid["ranks"]])
     for k in kernels.values():
         k["launches"] = sum(c[k["name"]] for c in runs)
     missing = [k for k, v in kernels.items() if v["launches"] == 0]
@@ -1983,7 +2447,9 @@ def main(argv=None) -> int:
               "lm_world1": lm1, "lm_profile": lm_profile,
               "lm_small": lm_small, "lm_world2": lm2,
               "ring_checks": ring["checks"], "sp_attention": sp_attention,
-              "sp_long": sp_long, "sp_grid": sp_grid}
+              "sp_long": sp_long, "sp_grid": sp_grid,
+              "matmul_reduce_scatter": mm_rs, "tp": tp_long,
+              "hybrid": tp_hybrid}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -102,3 +102,4 @@ def transformer_state_dict_from_flax(params: Dict) -> Dict:
         else:
             raise KeyError(f"unknown Flax module {top!r}")
     return out
+

@@ -89,6 +89,10 @@ class Block(nn.Module):
                  fused_ln: bool = False):
         super().__init__()
         self.num_heads, self.dtype, self.attn_fn = num_heads, dtype, attn_fn
+        # fixed here: under tensor parallelism a rank's qkv holds only its
+        # heads (``parallel/tensor.py``), so neither the head count nor the
+        # attention output's width can be read off d_model in forward
+        self.head_dim = d_model // num_heads
         ln = partial(LayerNorm, d_model, dtype=dtype, fused=fused_ln)
         self.ln_attn = ln()
         self.qkv = Dense(d_model, 3 * d_model, dtype)
@@ -98,11 +102,10 @@ class Block(nn.Module):
         self.mlp_out = Dense(4 * d_model, d_model, dtype)
 
     def forward(self, x):
-        b, t, d = x.shape
-        qkv = self.qkv(self.ln_attn(x)).view(b, t, self.num_heads, 3,
-                                            d // self.num_heads)
+        b, t, _ = x.shape
+        qkv = self.qkv(self.ln_attn(x)).view(b, t, -1, 3, self.head_dim)
         out = self.attn_fn(qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :])
-        x = x + self.proj(out.to(self.dtype).reshape(b, t, d))
+        x = x + self.proj(out.to(self.dtype).reshape(b, t, -1))
         h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_out(h)
 

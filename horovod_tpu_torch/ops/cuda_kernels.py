@@ -11,7 +11,9 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
   (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``;
 * the LayerNorm forward (``layer_norm_fwd``), ``csrc/layer_norm.cu``;
 * the AdamW update over many leaves at once (``adamw_update``),
-  ``csrc/adamw.cu``.
+  ``csrc/adamw.cu``;
+* the tiled matrix product of the fused matmul + reduce-scatter ring
+  (``matmul_2d``, with its tile rule ``matmul_tiles``), ``csrc/matmul.cu``.
 
 Each wrapper here
 
@@ -72,6 +74,7 @@ _SIGNATURES = {
                            + [_I64, _I64, _F, _P], _I),
     "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
     "hvd_adamw_block_elems": ("adamw", [], _I64),
+    "hvd_matmul": ("matmul", [_P, _P, _I, _I64, _I64, _I64, _P, _P], _I),
 }
 
 
@@ -653,10 +656,76 @@ def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
         adamw_update.launches += 1
 
 
+# ------------------------------------------------------------------ matmul
+_LANES = 128
+_MM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pick_block(t: int, preferred: int):
+    """Largest power-of-2 tile <= ``preferred`` dividing ``t``, or None if
+    none >= 8 does (``pallas_kernels._pick_block`` with its edge given)."""
+    b = preferred
+    while b >= 8:
+        if t % b == 0:
+            return b
+        b //= 2
+    return None
+
+
+def matmul_tiles(mdim: int, kdim: int, ndim: int):
+    """(bm, bk, bn) of ``pallas_kernels.matmul_tiles`` for an [M, K] @ [K,
+    N] product, or None when the shape does not tile (K or N not a multiple
+    of 128, or no power-of-2 row tile >= 8 divides M). The port's kernel
+    tiles otherwise; the rule only decides which shapes run it."""
+    if kdim % _LANES or ndim % _LANES:
+        return None
+    bm = _pick_block(mdim, 256)
+    bk = _pick_block(kdim, 512)
+    bn = _pick_block(ndim, 256)
+    if bm is None or bk is None or bn is None:
+        return None
+    return bm, bk, bn
+
+
+def matmul_2d_plain(x2, w2):
+    """[M, K] @ [K, N] with f32 sums, in the inputs' dtype."""
+    return torch.matmul(x2.float(), w2.float()).to(x2.dtype)
+
+
+def matmul_2d(x2, w2):
+    """x2 [M, K] @ w2 [K, N], f32 or bf16 (one dtype), contiguous ->
+    [M, N] in that dtype, the sum accumulated in f32 (bf16: tensor cores;
+    f32: full f32 FMA, no TF32). Replaces ``pallas_kernels.matmul_2d``;
+    raises ``ValueError`` on mixed dtypes or a shape ``matmul_tiles``
+    refuses. Forward only, as the TPU kernel (no VJP)."""
+    _check_2d(x2, "matmul_2d x", _MM_DTYPES)
+    _check_2d(w2, "matmul_2d w", _MM_DTYPES)
+    if x2.dtype != w2.dtype or x2.device != w2.device:
+        raise ValueError(f"matmul_2d: x {x2.dtype} on {x2.device} and w "
+                         f"{w2.dtype} on {w2.device} must share dtype and "
+                         "device")
+    (mdim, kdim), ndim = x2.shape, w2.shape[1]
+    if w2.shape[0] != kdim or matmul_tiles(mdim, kdim, ndim) is None:
+        raise ValueError(f"matmul_2d: [{mdim}, {kdim}] @ {list(w2.shape)} "
+                         "does not tile (K and N multiples of 128, M of 8)")
+    if x2.device.type == "cpu":
+        return matmul_2d_plain(x2, w2)
+    if not (mdim and kdim and ndim):  # an empty sum is 0
+        return torch.zeros((mdim, ndim), dtype=x2.dtype, device=x2.device)
+    if x2.data_ptr() % 16 or w2.data_ptr() % 16:
+        raise ValueError("matmul_2d: operands must start on a 16-byte "
+                         "boundary")
+    out = torch.empty((mdim, ndim), dtype=x2.dtype, device=x2.device)
+    _launch("hvd_matmul", x2.device, x2.data_ptr(), w2.data_ptr(),
+            _MM_DTYPES[x2.dtype], mdim, kdim, ndim, out.data_ptr())
+    matmul_2d.launches += 1
+    return out
+
+
 WRAPPERS = (int8_quantize_2d, int8_dequantize_2d, int8_quantize_pack_2d,
             int4_quantize_pack_2d, adasum_combine_pairs, flash_attention_fwd,
             flash_attention_bwd, layer_norm_fwd, adamw_update,
-            flash_attention_step)
+            flash_attention_step, matmul_2d)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -1,6 +1,7 @@
 """Parallelism beyond data parallelism (counterpart of
 ``horovod_tpu/parallel``): sequence parallelism by ring attention and by
-Ulysses, and LM training over a (dp, sp) grid of processes."""
+Ulysses, LM training over a (dp, sp) grid of processes, Megatron tensor
+parallelism over a (dp, tp) grid, and the 3D (dp, tp, sp) hybrid."""
 
 from .ring_attention import (  # noqa: F401
     make_ring_attention,
@@ -19,4 +20,23 @@ from .sequence import (  # noqa: F401
     make_ulysses_attention,
     seq_to_heads,
     ulysses_attention,
+)
+from .tensor import (  # noqa: F401
+    make_2d_mesh,
+    make_dp_tp_mesh,
+    make_tp_train_step,
+    plain_attention,
+    shard_batch_dp,
+    shard_params_tp,
+    shard_state_dict_tp,
+    tp_param_shardings,
+    tp_param_spec,
+)
+from .hybrid import (  # noqa: F401
+    hybrid_model,
+    make_dp_tp_sp_mesh,
+    make_hybrid_train_step,
+    shard_data_hybrid,
+    shard_opt_state_hybrid,
+    shard_params_hybrid,
 )

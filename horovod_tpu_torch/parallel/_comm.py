@@ -1,8 +1,9 @@
 """Differentiable communication along one axis of a process mesh (a
 process group; None is the whole world): the ring's hop, the tiled
-all-to-all, and the split of a global sequence into blocks and back. All
-of it goes through ``runtime.executor._collective``; an axis of one rank
-communicates nothing."""
+all-to-all, the split of a global sequence into blocks and back, and
+Megatron's two conjugate operators of tensor parallelism. All of it goes
+through ``runtime.executor._collective``; an axis of one rank communicates
+nothing."""
 
 from __future__ import annotations
 
@@ -93,6 +94,42 @@ class _ShardSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return gather_blocks(g.contiguous(), ctx.group, 1), None
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis. At
+    the input of a column-parallel layer: each rank's slice of the layer
+    gives a partial gradient of the replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange("all_reduce", g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Sum over the axis forward; identity backward. At the output of a
+    row-parallel layer: each rank's slice gives a partial product."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _exchange("all_reduce", x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x, group=None):
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x, group=None):
+    return _ReduceFromTP.apply(x, group)
 
 
 def ppermute(x, group=None):

@@ -1,15 +1,17 @@
 """Sequence-parallel (and data-parallel) LM training over a (dp, sp) grid of
-processes (counterpart of ``horovod_tpu/parallel/sp_training.py``).
+processes (counterpart of ``horovod_tpu/parallel/sp_training.py``), and the
+training step that the tensor-parallel and 3D grids share.
 
 * The grid: rank ``r`` sits at ``(dp, sp) = divmod(r, sp)``, so the sp
   ranks of a dp row are consecutive; the batch is sharded over dp, the
   sequence over sp, and every rank holds the whole model and optimizer.
 * The model's attention is ring attention over the sp group
   (``ring_attention.py``: kernel K6 a hop forward, K7 a hop backward).
-* Each rank's loss is the mean over its own tokens; ``DistributedOptimizer``
-  averages the gradients over the whole world, the reference's ``pmean``
-  over (dp, sp). With equal shards that is the gradient of the global mean
-  loss.
+* Each rank's loss is the mean over its own tokens; the step averages the
+  gradients over the mesh's gradient group, every rank here (the
+  reference's ``pmean`` over (dp, sp)). With equal shards that is the
+  gradient of the global mean loss. Under tensor parallelism the group is
+  the ranks that hold the same tensor shard (``tensor.py``, ``hybrid.py``).
 
 The parameters live in the ``nn.Module``, as PyTorch keeps them, where the
 reference passes a parameter tree through pure functions::
@@ -23,6 +25,7 @@ reference passes a parameter tree through pure functions::
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Any
@@ -30,13 +33,46 @@ from typing import Any
 import torch
 
 from .. import basics
-from ..basics import Average
 from ..models.transformer import lm_loss
-from ..ops.collective_ops import allreduce
 from ..optim.broadcast import broadcast_parameters
-from ..optim.distributed import DistributedOptimizer
-from ._comm import gather_blocks
+from ._comm import _exchange, axis, gather_blocks
 from .ring_attention import ring_attention
+
+
+def grid(shape, axis_sets):
+    """This rank's coordinates on the row-major grid ``shape`` over every
+    rank, and for each tuple of axes in ``axis_sets`` the process group of
+    the ranks that share this rank's coordinates on the other axes (None at
+    world size 1). Every rank requests every group, in the same order; a
+    group is made once a process (``basics.process_group``), so a grid built
+    again reuses it. Raises ``ValueError`` unless the grid spans the world."""
+    world = basics.size()
+    if math.prod(shape) != world:
+        raise ValueError(f"need {math.prod(shape)} devices, have {world} "
+                         f"(one rank a device)")
+
+    def coords(r):
+        out = []
+        for n in reversed(shape):
+            r, c = divmod(r, n)
+            out.append(c)
+        return tuple(reversed(out))
+
+    mine = coords(basics.rank())
+    if world == 1:
+        return mine, [None] * len(axis_sets)
+    groups = []
+    for axes in axis_sets:
+        members = {}
+        for r in range(world):
+            c = coords(r)
+            key = tuple(v for i, v in enumerate(c) if i not in axes)
+            members.setdefault(key, []).append(r)
+        own = tuple(v for i, v in enumerate(mine) if i not in axes)
+        made = {key: basics.process_group(ranks)
+                for key, ranks in members.items()}
+        groups.append(made[own])
+    return mine, groups
 
 
 @dataclass(frozen=True)
@@ -50,25 +86,17 @@ class DpSpMesh:
     dp_group: Any
     sp_group: Any
 
+    @property
+    def grad_group(self):
+        """Every rank holds the whole model: gradients average over all."""
+        return None
+
 
 def make_dp_sp_mesh(dp: int, sp: int) -> DpSpMesh:
-    """The (dp, sp) grid over every rank, row-major. Every rank requests
-    every group, in the same order; a group is made once a process
-    (``basics.process_group``), so a grid built again reuses it. Raises
-    ``ValueError`` unless ``dp * sp`` is the world size."""
-    world = basics.size()
-    if dp * sp != world:
-        raise ValueError(f"need {dp * sp} devices, have {world} (one rank "
-                         f"a device)")
-    dp_rank, sp_rank = divmod(basics.rank(), sp)
-    if world == 1:
-        return DpSpMesh(1, 1, 0, 0, None, None)
-    sp_groups = [basics.process_group(range(i * sp, (i + 1) * sp))
-                 for i in range(dp)]
-    dp_groups = [basics.process_group(range(j, world, sp))
-                 for j in range(sp)]
-    return DpSpMesh(dp, sp, dp_rank, sp_rank, dp_groups[sp_rank],
-                    sp_groups[dp_rank])
+    """The (dp, sp) grid over every rank, row-major (see :func:`grid`).
+    Raises ``ValueError`` unless ``dp * sp`` is the world size."""
+    (dp_rank, sp_rank), (sp_group, dp_group) = grid((dp, sp), [(1,), (0,)])
+    return DpSpMesh(dp, sp, dp_rank, sp_rank, dp_group, sp_group)
 
 
 def sp_model(model_cls, mesh: DpSpMesh, **kwargs):
@@ -106,27 +134,38 @@ def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def make_sp_train_step(model, optimizer, mesh: DpSpMesh):
+def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
+    """Mean of ``t`` over ``group`` (None: every rank), in ``t``'s dtype."""
+    return _exchange("all_reduce", t, group) / axis(group)[0]
+
+
+def make_sp_train_step(model, optimizer, mesh):
     """``step(tokens, targets) -> loss``: one training step on the GLOBAL
     ``[B, T]`` batch (the same on every rank; shift the targets before
     sharding, so that they are right across block edges). The step takes
     this rank's block, runs ``lm_loss`` on it at position ``sp_rank * T /
-    sp``, steps ``optimizer`` wrapped in ``DistributedOptimizer`` and
-    returns the loss averaged over every rank."""
-    opt = DistributedOptimizer(optimizer,
-                               named_parameters=model.named_parameters())
+    sp``, averages every gradient over ``mesh.grad_group``, steps
+    ``optimizer`` and returns the loss averaged over that group.
+
+    The tensor-parallel and 3D steps are this one on their meshes
+    (``tensor.py``, ``hybrid.py``): a mesh gives ``dp``, ``dp_rank``,
+    ``sp``, ``sp_rank`` and ``grad_group``."""
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(tokens, targets):
         dev = _device_of(model)
         tok = _local_block(tokens, mesh, dev)
         tgt = _local_block(targets, mesh, dev)
         _check_global_seq_len(model, tok.shape[1], mesh)
-        opt.zero_grad()
+        optimizer.zero_grad()
         loss = lm_loss(model(tok, pos_offset=mesh.sp_rank * tok.shape[1]),
                        tgt)
         loss.backward()
-        opt.step()
-        return allreduce(loss.detach(), op=Average)
+        for p in params:
+            if p.grad is not None:
+                p.grad = _group_mean(p.grad, mesh.grad_group)
+        optimizer.step()
+        return _group_mean(loss.detach(), mesh.grad_group)
 
     return step
 

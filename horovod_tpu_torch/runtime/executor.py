@@ -15,7 +15,7 @@ reference.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -46,17 +46,19 @@ def _collective(kind: str, t: torch.Tensor, backend: Optional[str],
                 shift: int = 1) -> torch.Tensor:
     """The one place that issues a collective; returns a new tensor on
     ``t``'s device. ``kind`` is ``all_to_all`` (tiled along dim 0),
-    ``all_gather`` (tiled along dim 0), ``all_reduce`` (sum), ``broadcast``
-    (from global rank ``root``) or ``ppermute`` (send to the rank ``shift``
-    places on in the group, receive from the one ``shift`` places back: the
-    ring's hop). ``world`` is the size of ``group`` (None: every rank).
-    Under gloo a CUDA tensor is staged through host memory here: gloo's
-    all-to-all, all-gather and point-to-point take CPU tensors, and the
-    staging copy is the wire, not a fallback of a kernel."""
+    ``all_gather`` (tiled along dim 0), ``all_reduce`` (sum),
+    ``reduce_scatter`` (sum, tiled along dim 0: group rank i gets the i-th
+    of ``world`` row chunks), ``broadcast`` (from global rank ``root``) or
+    ``ppermute`` (send to the rank ``shift`` places on in the group, receive
+    from the one ``shift`` places back: the ring's hop). ``world`` is the
+    size of ``group`` (None: every rank). Under gloo a CUDA tensor is
+    staged through host memory here: gloo's all-to-all, all-gather,
+    reduce-scatter and point-to-point take CPU tensors, and the staging copy
+    is the wire, not a fallback of a kernel."""
+    if kind == "ppermute":
+        return start_ppermute(t, backend, group, shift)()
     dev = t.device
-    if backend == "gloo" and dev.type == "cuda":
-        t = t.cpu()
-    t = t.contiguous()
+    t = _staged(t, backend)
     if kind == "broadcast":
         out = t.clone()
         dist.broadcast(out, src=root, group=group)
@@ -70,19 +72,51 @@ def _collective(kind: str, t: torch.Tensor, backend: Optional[str],
     elif kind == "all_reduce":
         out = t.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    elif kind == "ppermute":
-        ranks = group_ranks(group)
-        n, i = len(ranks), ranks.index(dist.get_rank())
-        out = torch.empty_like(t)
-        # both posted before either waits: a blocking send first would
-        # leave every rank of the ring waiting on its neighbour
-        for work in dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, t, ranks[(i + shift) % n], group),
-                dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)]):
-            work.wait()
+    elif kind == "reduce_scatter":
+        if t.shape[0] % world:
+            raise ValueError(f"reduce_scatter: {t.shape[0]} rows do not "
+                             f"split into {world} chunks")
+        out = t.new_empty((t.shape[0] // world,) + tuple(t.shape[1:]))
+        # the newer name of reduce_scatter_tensor, where torch has it
+        rs = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        rs(out, t, op=dist.ReduceOp.SUM, group=group)
     else:
         raise ValueError(f"unknown collective {kind!r}")
     return out.to(dev)
+
+
+def _staged(t: torch.Tensor, backend: Optional[str]) -> torch.Tensor:
+    """``t`` as the backend takes it: contiguous, on the host under gloo."""
+    if backend == "gloo" and t.device.type == "cuda":
+        t = t.cpu()
+    return t.contiguous()
+
+
+def start_ppermute(t: torch.Tensor, backend: Optional[str], group=None,
+                   shift: int = 1) -> Callable[[], torch.Tensor]:
+    """Post the ring's hop of ``t`` (send to the rank ``shift`` places on
+    in ``group``, receive from the one ``shift`` places back) and return
+    ``wait()``, which blocks until both are done and returns the received
+    tensor on ``t``'s device. Work issued between the two overlaps the
+    transfer."""
+    dev = t.device
+    t = _staged(t, backend)
+    ranks = group_ranks(group)
+    n, i = len(ranks), ranks.index(dist.get_rank())
+    out = torch.empty_like(t)
+    # both posted before either waits: a blocking send first would leave
+    # every rank of the ring waiting on its neighbour
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, t, ranks[(i + shift) % n], group),
+        dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)])
+
+    def wait(_sent=t) -> torch.Tensor:  # holds the staged send until done
+        for work in works:
+            work.wait()
+        return out.to(dev)
+
+    return wait
 
 
 class Executor:

@@ -1,6 +1,7 @@
 """The LM kernels against their plain twins on the card (K5, K7: flash
-attention; K8: LayerNorm; K9: AdamW), at small shapes, with the tolerances
-of ``chip_smoke.py`` phase 5.
+attention; K8: LayerNorm; K9: AdamW; K6: the ring hop; K10: the matmul of
+the fused matmul + reduce-scatter), at small shapes, with the tolerances
+of ``chip_smoke.py`` phases 5, 6 and 7.
 
 Every test needs a CUDA device and skips without one. The module imports
 neither jax nor the reference, so that it runs where only PyTorch is
@@ -171,3 +172,30 @@ def test_hop_backward_above_the_diagonal_gives_exact_zeros(dtype):
                                         k_off=k_off):
             torch.cuda.synchronize()
             assert g.dtype == torch.float32 and not g.any()
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (520, 384, 640)),
+                                         (torch.float32, (264, 512, 384))])
+def test_matmul_matches_twin_and_counts_launches(dtype, shape):
+    """K10 against ``torch.matmul`` of the f32 operands (TF32 off): within
+    2 K 2^-24 (|x| @ |w|) plus one unit in the last place of the output,
+    two launches byte-equal, one launch counted each."""
+    m, k, n = shape
+    gen = _gen()
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ck.matmul_2d_plain(x, w)
+        mag = x.float().abs() @ w.float().abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    got = ck.matmul_2d(x, w)
+    again = ck.matmul_2d(x, w)
+    assert ck.launch_counts()["matmul_2d"] == 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}[dtype]
+    bound = (2 * k * 2.0 ** -24 * mag
+             + ulp * torch.maximum(got.float().abs(), want.float().abs()))
+    assert ((got.float() - want.float()).abs() <= bound).all()
