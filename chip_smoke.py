@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
-``flash_attention.cu``, ``layer_norm.cu``, ``adamw.cu`` and ``matmul.cu``,
-one ``nvcc`` each, all at once, into ``build/torch_kernels/``), then:
+``flash_attention.cu``, ``flash_attention_sm90.cu``, ``layer_norm.cu``,
+``adamw.cu`` and ``matmul.cu``, one ``nvcc`` each, all at once, into
+``build/torch_kernels/``), then:
 
 1. holds each wire kernel against its plain-PyTorch twin on the card, byte
    for byte, at the main-path shape (the flat ResNet-50 gradient as
@@ -33,14 +34,19 @@ one ``nvcc`` each, all at once, into ``build/torch_kernels/``), then:
 4b. trains a ResNet-18 of width 8 at world size 4 (32x32, batch 4 per
    rank, 2 steps of Adasum: a two-level tree) and checks bit-identical
    parameters on all four ranks;
-5. holds the LM kernels against their twins on the card, to the stated
+5. checks that the SASS of the wgmma / TMA attention kernels (K5 and K7
+   for bf16 at D = 64, ``flash_attention_sm90.cu``) holds HGMMA and prints
+   its HGMMA and UTMALDG counts; holds the LM kernels against their twins
+   on the card, to the stated
    tolerances: flash attention forward K5 and backward K7 (bf16 and f32,
    causal or not, head dims 32/64/128, T = 1000, BH = 1, offsets, the
    strided q/k/v views of the model's qkv projection; K7 also with f32
    outputs, and two K7 launches byte-equal), LayerNorm K8 ([8192, 1024]
    bf16 and ragged widths) and AdamW K9 (the 292 leaves of GPT-2-medium and
    odd lengths, mu in bf16 and f32, steps 1 and 10); and times kernel,
-   twin and the one PyTorch call that computes the same function;
+   twin and the one PyTorch call that computes the same function (K7 also
+   as the autograd function calls it, making D = rowsum(dO * O) in its dq
+   kernel, against SDPA's backward, which makes its own);
 5b. trains GPT-2-medium (24 layers, d_model 1024, 16 heads, vocab 32768,
    seq 1024, batch 8, bf16) at world size 1 for 2 warm-up and 5 timed
    steps, in the default configuration (K5, K7) and with the fused
@@ -117,8 +123,8 @@ from multiprocessing import get_context
 import torch
 
 BLOCK = 256
-LIBRARIES = ("wire_quant", "adasum", "flash_attention", "layer_norm", "adamw",
-             "matmul")
+LIBRARIES = ("wire_quant", "adasum", "flash_attention", "flash_attention_sm90",
+             "layer_norm", "adamw", "matmul")
 SOURCE = "horovod_tpu_torch/csrc/wire_quant.cu"
 ADASUM_SOURCE = "horovod_tpu_torch/csrc/adasum.cu"
 REPLACES = {
@@ -139,9 +145,9 @@ REPLACES = {
 }
 WIRE = ("int8_quantize_2d", "int8_dequantize_2d", "int8_quantize_pack_2d",
         "int4_quantize_pack_2d")
-LM_SOURCES = {
-    "flash_attention_fwd": "horovod_tpu_torch/csrc/flash_attention.cu",
-    "flash_attention_bwd": "horovod_tpu_torch/csrc/flash_attention.cu",
+LM_SOURCES = {  # the source of the kernels the main path launches
+    "flash_attention_fwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_step": "horovod_tpu_torch/csrc/flash_attention.cu",
     "layer_norm_fwd": "horovod_tpu_torch/csrc/layer_norm.cu",
     "adamw_update": "horovod_tpu_torch/csrc/adamw.cu",
@@ -592,13 +598,44 @@ def attention_cases(gen):
     return cases
 
 
+SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+
+
+def sass_counts(library: str) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each kernel of
+    the built ``csrc/<library>.cu``, by mangled kernel name, from
+    ``cuobjdump -sass``."""
+    from horovod_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(library))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    return counts
+
+
 def phase_lm_kernels(rate: float) -> dict:
     """K5, K7, K8 and K9 against their twins on the card, at the main-path
-    shapes and at ragged ones; two K7 launches byte-equal; times."""
+    shapes and at ragged ones; two K7 launches byte-equal; times. First,
+    the SASS of the wgmma / TMA attention kernels must hold HGMMA."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import cuda_kernels as ck
 
+    sass = {short: c for fn, c in sass_counts("flash_attention_sm90").items()
+            for short in SM90_KERNELS if f"{short}_kernel" in fn}
+    log(f"phase 5: HGMMA / UTMALDG instructions in the SASS of "
+        f"flash_attention_sm90.cu: {sass}")
+    if (sorted(sass) != sorted(SM90_KERNELS)
+            or any(c["HGMMA"] == 0 for c in sass.values())):
+        raise AssertionError(f"K5 / K7 kernels without wgmma: {sass}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     checks, worst = [], {}
 
@@ -641,6 +678,14 @@ def phase_lm_kernels(rate: float) -> dict:
                   and all(a.dtype == out_dtype for a in g))
             note("flash_attention_bwd", f"{name} out {out_dtype} dq/dk/dv "
                  f"(two launches byte-equal {same})", ok,
+                 max(e for e, _ in er), max(r for _, r in er))
+        if ck._hopper_route(q):  # D made by the dq kernel from out
+            g = ck.flash_attention_bwd(q, k, v, do, lse, out=out, **kw)
+            gt = ck.flash_attention_bwd_plain(q, k, v, do, lse, dd, **kw)
+            er = [ratio_rows(a, b, ATTN_GRAD_TOL[q.dtype], dim=None)
+                  for a, b in zip(g, gt)]
+            note("flash_attention_bwd", f"{name} dq/dk/dv with D made in "
+                 f"the kernel", all(r <= 1 for _, r in er),
                  max(e for e, _ in er), max(r for _, r in er))
     torch.cuda.synchronize()
 
@@ -810,6 +855,25 @@ def phase_lm_kernels(rate: float) -> dict:
     log(f"  flash_attention_bwd with f32 outputs: kernel {r['ms']:.4f} ms "
         f"(device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms by {r['bound_by']} on {CARD}")
+
+    # K7 as _FlashAttention.backward calls it: from out, D = rowsum(dO * O)
+    # made by its dq kernel, as SDPA's backward makes its own (cuDNN's
+    # dot_do_o kernel)
+    def k7_as_called():
+        return ck.flash_attention_bwd(q, k, v, do, lse, out=o, **attn)
+
+    r = out["flash_attention_bwd"]["with_d"] = {
+        "ms": cuda_ms(k7_as_called, 20),
+        "device_ms": device_ms(k7_as_called, 10, ("flash_bwd",))}
+    r["vs_library"] = r["ms"] / out["flash_attention_bwd"]["library_ms"]
+    log(f"  flash_attention_bwd making D from out (as the autograd "
+        f"function calls it): {r['ms']:.4f} ms (device {r['device_ms']}) "
+        f"against SDPA backward's "
+        f"{out['flash_attention_bwd']['library_ms']:.4f} ms: "
+        f"{r['vs_library']:.3f}x; K5 against SDPA: "
+        f"{out['flash_attention_fwd']['ms'] / out['flash_attention_fwd']['library_ms']:.3f}x"
+        f" on {CARD}")
+    out["sass"] = sass
     out["checks"] = checks
     return out
 
@@ -888,13 +952,17 @@ def phase_lm_profile() -> dict:
             if any(m in k for m in ("flash_fwd", "flash_bwd", "ln_fwd",
                                     "adamw_kernel"))}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    attention = sum(v for k, v in ours.items()
+                    if "flash_fwd" in k or "flash_bwd" in k) / 2
     log(f"phase 5b': 2 profiled GPT-2-medium steps (fused path): "
         f"{wall:.1f} ms wall (profiler on), device time {total:.1f} ms "
         f"({100 * total / wall:.1f}% busy), of it the port's kernels "
-        f"{sum(ours.values()):.1f} ms; top device kernels (ms) "
+        f"{sum(ours.values()):.1f} ms, attention (K5 + K7) "
+        f"{attention:.2f} ms a step; top device kernels (ms) "
         f"{[(k[:70], round(v, 2)) for k, v in top]}; on {CARD}")
     return {"wall_ms": wall, "device_ms_total": total,
-            "port_kernels_ms": ours, "top": top}
+            "port_kernels_ms": ours, "attention_ms_per_step": attention,
+            "top": top}
 
 
 def phase_lm_small_agreement() -> dict:
@@ -2393,6 +2461,7 @@ def main(argv=None) -> int:
     kernels["adasum_combine_pairs"] = phase_adasum_kernel(rate)
     lm_kernels = phase_lm_kernels(rate)
     lm_checks = lm_kernels.pop("checks")
+    attention_sass = lm_kernels.pop("sass")
     kernels.update(lm_kernels)
     kernels["matmul_2d"] = phase_matmul_kernel(rate)
     world1 = phase_world1()
@@ -2443,6 +2512,7 @@ def main(argv=None) -> int:
     report = {"card": CARD, "kernels": list(kernels.values()),
               "world1": world1, "breakdown": breakdown, "small": small,
               "world2": world2, "adasum_world2": adasum2,
+              "attention_sass": attention_sass,
               "adasum_world4": adasum4, "lm_checks": lm_checks,
               "lm_world1": lm1, "lm_profile": lm_profile,
               "lm_small": lm_small, "lm_world2": lm2,

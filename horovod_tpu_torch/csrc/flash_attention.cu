@@ -44,9 +44,11 @@
 // fully masked row gives out 0 and lse 0. Division, exp2f and logf are the
 // IEEE / libdevice ones (no --use_fast_math).
 //
+// The LM's own route, bf16 at D = 64 with bf16 gradients (K5 and K7), runs
+// on wgmma and TMA in flash_attention_sm90.cu; this file keeps the rest.
 // Design, two paths with the same contract:
-// * bf16 with D of 32 or 64 (the model's path) runs on the tensor cores
-//   through WMMA (16 x 16 x 16 bf16 products with f32 sums): a block of 4
+// * bf16 with D of 32, and at D = 64 the ring step K6 and the backward with
+//   f32 gradients, run on the tensor cores through WMMA (16 x 16 x 16 bf16 products with f32 sums): a block of 4
 //   warps owns 64 rows, 16 a warp, and walks the 64-row tiles of the other
 //   side, staged in shared memory as bf16. A warp's product tiles land in
 //   f32 scratch in shared memory; 2 lanes a row take the softmax (or dS) of
@@ -69,11 +71,9 @@
 // of microseconds. K6 at the ring hop of a 16384-token sequence over 4
 // ranks (q, k, v [1, 4096, 16, 64] bf16) moves 59.8 MB (17.8 us), its f32
 // carry in and out the most of it, for 68.7 GFLOP on a fully visible hop
-// (69.5 us): bound by operations. This version stages every product through shared memory and
-// computes dq apart from dk and dv (seven products in the backward where
-// the fused one does five), so shared-memory traffic, not the tensor
-// cores, sets its pace; wgmma, TMA and register-resident softmax are later
-// work.
+// (69.5 us): bound by operations. The WMMA kernels stage every product
+// through shared memory, so shared-memory traffic, not the tensor cores,
+// sets their pace.
 //
 // Determinism: the backward runs two kernels, dq over q tiles and dk+dv over
 // k tiles, each summing its tiles in a fixed order: no float atomics, so two
@@ -1136,7 +1136,8 @@ cudaError_t bwd(const int64_t* ptrs, const int64_t* strides, const void* lse,
 }
 
 // bf16 with D of 32 or 64 takes the tensor-core kernels, everything else the
-// CUDA-core ones.
+// CUDA-core ones; the forward and the bf16-gradient backward of bf16 at
+// D = 64 are flash_attention_sm90.cu's (wgmma and TMA) and refused here.
 template <typename T, bool kStep>
 cudaError_t fwd_d(int d, const int64_t* ptrs, const int64_t* strides, int B,
                   int H, int tq, int tk, int q_off, int k_off, int causal,
@@ -1147,8 +1148,9 @@ cudaError_t fwd_d(int d, const int64_t* ptrs, const int64_t* strides, int B,
     case 32:
       if constexpr (tc) return fwd_tc<32, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
       else return fwd<T, 32, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
-    case 64:
-      if constexpr (tc) return fwd_tc<64, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
+    case 64:  // K5 for bf16 runs in flash_attention_sm90.cu
+      if constexpr (tc && kStep) return fwd_tc<64, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
+      else if constexpr (tc) return cudaErrorNotSupported;
       else return fwd<T, 64, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
     case 128: return fwd<T, 128, kStep>(ptrs, strides, B, H, tq, tk, q_off, k_off, causal, scale_log2, out, lse, carry, st);
   }
@@ -1166,8 +1168,9 @@ cudaError_t bwd_d(int d, const int64_t* ptrs, const int64_t* strides,
     case 32:
       if constexpr (tc) return bwd_tc<O, 32>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
       else return bwd<T, O, 32>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
-    case 64:
-      if constexpr (tc) return bwd_tc<O, 64>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
+    case 64:  // bf16 gradients run in flash_attention_sm90.cu
+      if constexpr (tc && std::is_same<O, float>::value) return bwd_tc<O, 64>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
+      else if constexpr (tc) return cudaErrorNotSupported;
       else return bwd<T, O, 64>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
     case 128: return bwd<T, O, 128>(ptrs, strides, lse, dd, B, H, tq, tk, q_off, k_off, causal, scale, scale_log2, dq, dk, dv, st);
   }

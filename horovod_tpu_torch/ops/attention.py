@@ -2,9 +2,10 @@
 ``pallas_kernels.flash_attention`` and its ``_flash_fullattn_vjp``).
 
 The forward runs K5 (``cuda_kernels.flash_attention_fwd``) and saves
-``(q, k, v, out, lse)``: O(T) residuals. The backward computes
-``D = rowsum(dO * O)`` and runs K7 (``cuda_kernels.flash_attention_bwd``),
-which recomputes the probabilities tile by tile from the saved LSE, so no
+``(q, k, v, out, lse)``: O(T) residuals. The backward runs K7
+(``cuda_kernels.flash_attention_bwd``) with ``out``, from which it makes
+``D = rowsum(dO * O)`` (on the wgmma route inside its dq kernel), and
+recomputes the probabilities tile by tile from the saved LSE, so no
 ``[T, T]`` tensor is ever held. On CPU tensors both go through the plain
 twins.
 """
@@ -29,10 +30,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        dd = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq, dk, dv = ck.flash_attention_bwd(q, k, v, dout, lse, dd,
-                                            causal=ctx.causal,
+        dq, dk, dv = ck.flash_attention_bwd(q, k, v, dout.contiguous(), lse,
+                                            out=out, causal=ctx.causal,
                                             scale=ctx.scale)
         return dq, dk, dv, None, None
 

@@ -8,7 +8,9 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
   ``csrc/adasum.cu``;
 * flash attention, forward (``flash_attention_fwd``), the ring hop of
   sequence parallelism (``flash_attention_step``) and backward
-  (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``;
+  (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``,
+  and for bf16 at D = 64 with bf16 results (the LM's route) on wgmma and
+  TMA in ``csrc/flash_attention_sm90.cu``;
 * the LayerNorm forward (``layer_norm_fwd``), ``csrc/layer_norm.cu``;
 * the AdamW update over many leaves at once (``adamw_update``),
   ``csrc/adamw.cu``;
@@ -70,6 +72,12 @@ _SIGNATURES = {
                       + [_F, _F] + [_P] * 6, _I),
     "hvd_flash_step": ("flash_attention", [_P, _P] + [_I] * 9
                        + [_F, _P, _P, _P, _P], _I),
+    # each operand as (pointer, sb, st, sh)
+    "hvd_flash_fwd_sm90": ("flash_attention_sm90", [_P, _I64, _I64, _I64] * 3
+                           + [_I] * 7 + [_F, _P, _P, _P], _I),
+    "hvd_flash_bwd_sm90": ("flash_attention_sm90", [_P, _I64, _I64, _I64] * 5
+                           + [_I] * 7 + [_F, _F, _P, _P, _I, _I] + [_P] * 4,
+                           _I),
     "hvd_layer_norm_fwd": ("layer_norm", [_P, _I] + [_P] * 5
                            + [_I64, _I64, _F, _P], _I),
     "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
@@ -78,24 +86,47 @@ _SIGNATURES = {
 }
 
 
+_loaded: dict = {}  # C function name -> (library, function), typed
+
+
 def _kernel(name: str):
+    got = _loaded.get(name)
+    if got is not None:
+        return got
     library, argtypes, restype = _SIGNATURES[name]
     lib = _build.load(library)
     fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = restype
-        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    fn.argtypes = argtypes
+    fn.restype = restype
+    lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib, fn
     return lib, fn
 
 
+# The current stream of card ``index`` as a pointer-sized int, without
+# building a Stream object on every launch where torch allows.
+_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch on ``device``'s current stream; the device is made current
+    only when it is not already."""
     lib, fn = _kernel(name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, _stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _stream(index))
     if err != 0:
         msg = lib.hvd_cuda_error_string(err).decode()
+        step = getattr(lib, "hvd_flash_sm90_failure", None)
+        if step is not None:  # the launcher says what it was doing
+            step.restype = ctypes.c_char_p
+            msg += f", {step().decode()}"
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
 
 
@@ -350,6 +381,24 @@ def _check_bthd(t, what: str) -> None:
 
 
 def _check_attention(q, k, v, dout=None) -> None:
+    # the common case in few attribute reads (a launch's host time is part
+    # of its cost); anything else is named by the checks below
+    try:
+        dt, dev = q.dtype, q.get_device()  # -1 off the card
+        b, _, h, d = q.shape
+        kb, _, kh, kd = k.shape
+        ok = (dt in _ATTN_DTYPES and k.shape == v.shape and kb == b
+              and kh == h and kd == d
+              and (dout is None or dout.shape == q.shape)
+              and (q.is_cuda and d in _ATTN_HEAD_DIMS
+                   or dev < 0 and q.device.type == "cpu"))
+        for t in (q, k, v) if dout is None else (q, k, v, dout):
+            ok = (ok and t.dtype == dt and t.get_device() == dev
+                  and (d == 1 or t.stride(3) == 1))
+        if ok:
+            return
+    except (AttributeError, TypeError, ValueError):
+        pass
     named = [("q", q), ("k", k), ("v", v)] + (
         [] if dout is None else [("dout", dout)])
     for what, t in named:
@@ -372,11 +421,24 @@ def _check_attention(q, k, v, dout=None) -> None:
 def _aligned_rows(t):
     """``t`` if every row starts on a 16-byte boundary, else a contiguous
     copy (the kernel reads rows 16 bytes at a time)."""
-    es = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(t.stride(i) * es % 16 == 0
-                                      for i in range(3)):
-        return t
+    sb, st, sh = t.stride()[:3]
+    if (t.data_ptr() | (sb | st | sh) * t.element_size()) % 16 == 0:
+        return t  # 16 / element size is a power of 2: OR-ing is exact
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _hopper_route(q, out_dtype=None) -> bool:
+    """bf16 operands with D = 64 and bf16 results take the wgmma / TMA
+    kernels of ``csrc/flash_attention_sm90.cu``; the rest the kernels of
+    ``csrc/flash_attention.cu``."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] == 64
+            and out_dtype in (None, torch.bfloat16))
+
+
+def _operand_args(*ts):
+    """(pointer, sb, st, sh) of each operand, flat, as the sm90 launchers
+    take them."""
+    return [x for t in ts for x in (t.data_ptr(), *t.stride()[:3])]
 
 
 def _operand_table(*ts):
@@ -402,34 +464,57 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, q_off=0,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal, scale=scale,
                                          q_off=q_off, k_off=k_off)
-    out = torch.zeros((b, tq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.zeros((b, h, tq), dtype=torch.float32, device=q.device)
-    if b and h and tq and tk:  # no keys: every row fully masked, 0 and 0
-        q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    if not (b and h and tq and tk):  # no keys: every row 0, and lse 0
+        return (torch.zeros((b, tq, h, d), dtype=q.dtype, device=q.device),
+                torch.zeros((b, h, tq), dtype=torch.float32, device=q.device))
+    # the kernels write every element, masked rows included
+    out = q.new_empty((b, tq, h, d))
+    lse = q.new_empty((b, h, tq), dtype=torch.float32)
+    q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    if _hopper_route(q):
+        _launch("hvd_flash_fwd_sm90", q.device, *_operand_args(q, k, v), b,
+                h, tq, tk, q_off, k_off, int(causal), scale * _LOG2E,
+                out.data_ptr(), lse.data_ptr())
+    else:
         ptrs, strides = _operand_table(q, k, v)
         _launch("hvd_flash_fwd", q.device, ctypes.addressof(ptrs),
                 ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
                 tk, d, q_off, k_off, int(causal), scale * _LOG2E,
                 out.data_ptr(), lse.data_ptr())
-        flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches += 1
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
-                        out_dtype=None, q_off=0, k_off=0):
+def attention_delta(dout, out):
+    """D = rowsum(dO * O) [B, H, T] f32 from dO and O [B, T, H, D]: the
+    backward's per-row statistic."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd(q, k, v, dout, lse, dd=None, *, out=None,
+                        causal=False, scale=None, out_dtype=None, q_off=0,
+                        k_off=0):
     """(dq, dk, dv) of flash attention from q, k, v, dO [B, T, H, D] and
     lse, D = rowsum(dO * O) [B, H, Tq] f32, in ``out_dtype``: q's dtype
     (the default; the single-device path) or f32 (the reference's
-    two-pass and ring contract). Replaces ``pallas_kernels._flash_bwd_fused``,
-    ``_flash_bwd_resident`` and the streaming branch of ``_flash_bwd_hm``
-    (``:1084``, the ring backward past the fused kernel's dq cap): with f32
-    outputs at a hop's ``q_off`` / ``k_off`` it is the ring backward's hop,
-    exact zeros where ``k_off`` lies past the last q row. One call, two
-    CUDA kernels (dq; dk and dv), deterministic."""
+    two-pass and ring contract). With ``dd=None``, D comes from ``out``,
+    the forward's output [B, Tq, H, D]: on the wgmma route the dq kernel
+    makes it, elsewhere :func:`attention_delta`. Replaces
+    ``pallas_kernels._flash_bwd_fused``, ``_flash_bwd_resident`` and the
+    streaming branch of ``_flash_bwd_hm`` (``:1084``, the ring backward past
+    the fused kernel's dq cap): with f32 outputs at a hop's ``q_off`` /
+    ``k_off`` it is the ring backward's hop, exact zeros where ``k_off``
+    lies past the last q row. One call, two CUDA kernels (dq; dk and dv),
+    deterministic."""
     _check_attention(q, k, v, dout)
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    for what, t in (("lse", lse), ("dd", dd)):
+    if dd is None:
+        if out is None:
+            raise ValueError("flash_attention_bwd: give dd, or out to make "
+                             "it from")
+        _check_attention(q, k, v, out)
+    for what, t in (("lse", lse), ("dd", dd))[:1 if dd is None else 2]:
         if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
                 or tuple(t.shape) != (b, h, tq) or t.device != q.device):
             raise ValueError(f"flash_attention_bwd: {what} must be f32 "
@@ -439,16 +524,43 @@ def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
         raise TypeError(f"flash_attention_bwd: out_dtype {out_dtype} is "
                         f"neither {q.dtype} nor float32")
     scale = d ** -0.5 if scale is None else float(scale)
+    hopper = q.device.type == "cuda" and _hopper_route(q, out_dtype)
+    if dd is None and not hopper:
+        dd = attention_delta(dout, out)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, lse, dd,
                                          causal=causal, scale=scale,
                                          out_dtype=out_dtype, q_off=q_off,
                                          k_off=k_off)
-    dq = torch.zeros((b, tq, h, d), dtype=out_dtype, device=q.device)
-    dk = torch.zeros((b, tk, h, d), dtype=out_dtype, device=q.device)
-    dv = torch.zeros((b, tk, h, d), dtype=out_dtype, device=q.device)
-    if b and h and tq and tk:
-        q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
+    if not (b and h and tq and tk):
+        return tuple(q.new_zeros((b, t, h, d), dtype=out_dtype)
+                     for t in (tq, tk, tk))
+    # the kernels write every element, rows no query sees included
+    dq = q.new_empty((b, tq, h, d), dtype=out_dtype)
+    dk = q.new_empty((b, tk, h, d), dtype=out_dtype)
+    dv = q.new_empty((b, tk, h, d), dtype=out_dtype)
+    q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
+    if hopper:
+        # TMA reads the statistics' rows at 16-byte strides: rows of ld
+        ld = -(-tq // 4) * 4
+
+        def rows_of_ld(t):
+            return (torch.nn.functional.pad(t, (0, ld - tq)) if ld != tq
+                    else t.contiguous())
+
+        lse = rows_of_ld(lse)
+        make_d = dd is None
+        if make_d:  # the dq kernel writes D here for the dk+dv kernel
+            dd = q.new_empty((b, h, ld), dtype=torch.float32)
+            out = _aligned_rows(out)
+        else:
+            dd = rows_of_ld(dd)
+        _launch("hvd_flash_bwd_sm90", q.device,
+                *_operand_args(q, k, v, dout, out if make_d else q), b, h,
+                tq, tk, q_off, k_off, int(causal), scale, scale * _LOG2E,
+                lse.data_ptr(), dd.data_ptr(), ld, int(make_d),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    else:
         lse, dd = lse.contiguous(), dd.contiguous()
         ptrs, strides = _operand_table(q, k, v, dout)
         _launch("hvd_flash_bwd", q.device, ctypes.addressof(ptrs),
@@ -456,7 +568,7 @@ def flash_attention_bwd(q, k, v, dout, lse, dd, *, causal=False, scale=None,
                 int(out_dtype == torch.float32), b, h, tq, tk, d, q_off,
                 k_off, int(causal), scale, scale * _LOG2E, lse.data_ptr(),
                 dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-        flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

@@ -8,19 +8,29 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
-from ..ops.collective_ops import broadcast
+from ..ops.collective_ops import (broadcast_unchecked, check_signatures,
+                                  signature)
+
+
+def _broadcast_all(named, root_rank: int) -> None:
+    """Broadcast each ``(name, tensor)`` from ``root_rank`` in place, the
+    ranks' tensors checked against each other in one gather first."""
+    check_signatures([signature("broadcast", t, name, root=root_rank)
+                      for name, t in named])
+    with torch.no_grad():
+        for _, t in named:
+            t.copy_(broadcast_unchecked(t, root_rank))
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:
     """Broadcast a ``state_dict()`` or an iterable of ``(name, tensor)``
     from ``root_rank`` into every rank's tensors, in place."""
     items = sorted(params.items()) if isinstance(params, dict) else list(params)
-    with torch.no_grad():
-        for name, p in items:
-            if p is None:
-                continue
-            t = p.data if hasattr(p, "data") else p
-            t.copy_(broadcast(t, root_rank, name=f"bp.{name}"))
+    if not 0 <= root_rank < basics.size():
+        raise ValueError(f"broadcast: root_rank {root_rank} outside world "
+                         f"size {basics.size()}")
+    _broadcast_all([(f"bp.{name}", p.data if hasattr(p, "data") else p)
+                    for name, p in items if p is not None], root_rank)
 
 
 def broadcast_object(obj, root_rank: int = 0):
@@ -52,14 +62,14 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
                 p.copy_(snap)
                 p.grad = g
     state_dict = optimizer.state_dict()
-    scalars = []
+    scalars, tensors = [], []
     for pid, pstate in state_dict.get("state", {}).items():
         for k, v in sorted(pstate.items()):
             if torch.is_tensor(v):
-                with torch.no_grad():
-                    v.copy_(broadcast(v, root_rank, name=f"opt.{pid}.{k}"))
+                tensors.append((f"opt.{pid}.{k}", v))
             else:
                 scalars.append((pid, k, v))
+    _broadcast_all(tensors, root_rank)
     hypers = [{k: v for k, v in g.items() if k != "params"}
               for g in state_dict.get("param_groups", [])]
     synced_scalars, synced_hypers = broadcast_object(

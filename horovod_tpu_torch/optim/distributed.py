@@ -67,19 +67,41 @@ class _DistributedOptimizer:
     def synchronize(self) -> None:
         """Error feedback (if on), then the allreduce of every gradient,
         written back into ``.grad``. At world size 1 the allreduce is
-        skipped, as in the reference; error feedback still runs."""
-        world = basics.size()
+        skipped, as in the reference; error feedback still runs.
+
+        Above world size 1 every parameter that requires a gradient takes
+        part, in ``named_parameters`` order, with zeros where its ``.grad``
+        is None (a parameter this rank's loss left unused), and gets the
+        result as its ``.grad``: ranks that leave different parameters
+        unused still reduce the same tensors together, and the replicas
+        stay equal. The ranks' tensors are checked against each other in
+        one gather first."""
+        if basics.size() == 1:
+            with torch.no_grad():
+                for name, p in self._named:
+                    if p.grad is not None and self._error_feedback:
+                        p.grad.copy_(self._apply_error_feedback(name, p.grad))
+            return
+        comp = self._compression
+        wire = comp.wire
         with torch.no_grad():
+            todo = []
             for name, p in self._named:
-                if p.grad is None:
+                if not p.requires_grad:
                     continue
-                g = p.grad
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if self._error_feedback:
                     g = self._apply_error_feedback(name, g)
-                if world > 1:
-                    g = ops.allreduce(g, op=self._op, name=f"grad.{name}",
-                                      compression=self._compression)
-                if g is not p.grad:
+                todo.append((name, p, *comp.compress(g)))
+            ops.check_signatures([
+                ops.signature("allreduce", c, f"grad.{name}", self._op,
+                              wire=wire) for name, _, c, _ in todo])
+            for name, p, c, ctx in todo:
+                g = comp.decompress(ops.allreduce_unchecked(c, self._op, wire),
+                                    ctx)
+                if p.grad is None:
+                    p.grad = g.to(p.dtype)
+                else:
                     p.grad.copy_(g)
 
     @contextlib.contextmanager
@@ -172,13 +194,14 @@ class _DistributedAdasumOptimizer:
             if p.requires_grad and name not in self._deltas:
                 self._counts[name] = 0
                 self._local_delta(name, p)
+        todo = [(name, p, *self._deltas.pop(name)) for name, p in self._named
+                if name in self._deltas]
+        ops.check_signatures([ops.signature("adasum", comp, f"adasum.{name}",
+                                            Adasum)
+                              for name, _, comp, _ in todo])
         with torch.no_grad():
-            for name, p in self._named:
-                if name not in self._deltas:
-                    continue
-                comp, ctx = self._deltas.pop(name)
-                combined = ops.allreduce(comp, op=Adasum,
-                                         name=f"adasum.{name}")
+            for name, p, comp, ctx in todo:
+                combined = ops.allreduce_unchecked(comp, Adasum)
                 p.add_(self._compression.decompress(combined, ctx).to(p.dtype))
         return loss
 

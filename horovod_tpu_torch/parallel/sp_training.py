@@ -161,9 +161,9 @@ def make_sp_train_step(model, optimizer, mesh):
         loss = lm_loss(model(tok, pos_offset=mesh.sp_rank * tok.shape[1]),
                        tgt)
         loss.backward()
-        for p in params:
-            if p.grad is not None:
-                p.grad = _group_mean(p.grad, mesh.grad_group)
+        for p in params:  # zeros for a parameter this rank left unused
+            p.grad = _group_mean(p.grad if p.grad is not None
+                                 else torch.zeros_like(p), mesh.grad_group)
         optimizer.step()
         return _group_mean(loss.detach(), mesh.grad_group)
 

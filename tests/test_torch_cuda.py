@@ -90,6 +90,103 @@ def test_attention_matches_twin_with_offsets(dtype):
         _rel_close(g, w, tol)
 
 
+HOPPER_CASES = {  # (B, Tq, Tk, H, causal, q_off, k_off, qkv views)
+    "main qkv views": (8, 1024, 1024, 16, True, 0, 0, True),
+    "T=1000 ragged": (2, 1000, 1000, 2, True, 0, 0, False),
+    "non-causal": (2, 512, 512, 4, False, 0, 0, False),
+    "masked rows": (1, 96, 160, 2, True, 0, 32, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOPPER_CASES))
+def test_hopper_attention_matches_twin(case):
+    """The wgmma / TMA route (bf16, D = 64, bf16 gradients) against the
+    twins with phase 5's tolerances: out within one bf16 unit of its row's
+    largest magnitude, lse to 1e-5, gradients to 2^-6 of each tensor's
+    largest |value|, also with D made by the dq kernel from out; rows that
+    see no key give out 0 and lse 0; two backward launches byte-equal."""
+    b, tq, tk, h, causal, q_off, k_off, views = HOPPER_CASES[case]
+    gen = _gen()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    if views:
+        qkv = rnd(b, tq, h, 3, 64)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    else:
+        q, k, v = rnd(b, tq, h, 64), rnd(b, tk, h, 64), rnd(b, tk, h, 64)
+    do = rnd(b, tq, h, 64)
+    assert ck._hopper_route(q)
+    kw = dict(causal=causal, scale=0.125, q_off=q_off, k_off=k_off)
+    out, lse = ck.flash_attention_fwd(q, k, v, **kw)
+    out_t, lse_t = ck.flash_attention_fwd_plain(q, k, v, **kw)
+    row = torch.maximum(out.float().abs(), out_t.float().abs()).amax(-1)
+    assert ((out.float() - out_t.float()).abs().amax(-1)
+            <= BF16_EPS * row).all()
+    assert ((lse - lse_t).abs() <= 1e-5 * (lse_t.abs() + 1)).all()
+    hidden = max(0, k_off - q_off)  # rows that see no key
+    assert not out[:, :hidden].any() and not lse[..., :hidden].any()
+    dd = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = ck.flash_attention_bwd(q, k, v, do, lse, dd, **kw)
+    again = ck.flash_attention_bwd(q, k, v, do, lse, dd, **kw)
+    want = ck.flash_attention_bwd_plain(q, k, v, do, lse, dd, **kw)
+    made = ck.flash_attention_bwd(q, k, v, do, lse, out=out, **kw)
+    made2 = ck.flash_attention_bwd(q, k, v, do, lse, out=out, **kw)
+    for g, a, m, m2, w in zip(got, again, made, made2, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+        assert torch.equal(m.view(torch.int16), m2.view(torch.int16))
+        _rel_close(g, w, 2.0 ** -6)
+        _rel_close(m, w, 2.0 ** -6)  # D made by the dq kernel from out
+    assert ck.launch_counts()["flash_attention_fwd"] == 1
+    assert ck.launch_counts()["flash_attention_bwd"] == 4
+
+
+def test_hopper_attention_launches_from_a_fresh_thread():
+    """A thread that has made no CUDA runtime call has no current context,
+    which encoding a tensor map needs (the autograd thread can reach the
+    launchers first): the kernels still launch there and give the same
+    bytes as on the main thread."""
+    import threading
+
+    gen = _gen()
+    q, k, v, do = (torch.randn(2, 256, 2, 64, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    want_out, lse = ck.flash_attention_fwd(q, k, v, causal=True)
+    want = ck.flash_attention_bwd(q, k, v, do, lse, out=want_out,
+                                  causal=True)
+    # freed blocks of every size the thread asks for: its allocations then
+    # make no runtime call that would bind a context for it
+    spare = [ck.flash_attention_fwd(q, k, v, causal=True),
+             ck.flash_attention_bwd(q, k, v, do, lse, out=want_out,
+                                    causal=True)]
+    torch.cuda.synchronize()
+    del spare
+    got = {}
+
+    def run():
+        try:
+            out, _ = ck.flash_attention_fwd(q, k, v, causal=True)
+            got["out"] = out
+            got["grads"] = ck.flash_attention_bwd(q, k, v, do, lse, out=out,
+                                                  causal=True)
+        except Exception as e:  # reported by the main thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    assert torch.equal(got["out"].view(torch.int16),
+                       want_out.view(torch.int16))
+    for g, w in zip(got["grads"], want):
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
 def test_layer_norm_and_adamw_match_twins():
     """K8 to one bf16 unit (plus 1e-6 of the row's largest |y|), mean and
     rstd to 2e-6 / 4e-6; K9 bit for bit, one launch over two leaves."""

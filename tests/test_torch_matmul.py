@@ -205,14 +205,31 @@ def test_parallel_modules_import_no_jax():
 def test_signatures_match_the_c_prototypes():
     """Each ctypes signature declares as many arguments as its C function
     in ``csrc/`` takes (the launchers' last one the stream): one too few
-    passes the stream as a 32-bit int."""
+    passes the stream as a 32-bit int. Each argument's type matches too: a
+    pointer is ``c_void_p``, an ``int64_t`` ``c_int64``, an ``int``
+    ``c_int`` and a ``float`` ``c_float`` (a 64-bit stride declared as an
+    int would be cut to 32 bits). The Hopper attention launchers are among
+    them."""
+    import ctypes
     import re
     from pathlib import Path
 
     csrc = Path(ck.__file__).resolve().parent.parent / "csrc"
+    assert {"hvd_flash_fwd_sm90", "hvd_flash_bwd_sm90"} <= set(ck._SIGNATURES)
+
+    def ctype(param: str):
+        if "*" in param:
+            return ctypes.c_void_p
+        for c_name, t in (("int64_t", ctypes.c_int64),
+                          ("float", ctypes.c_float), ("int", ctypes.c_int)):
+            if re.search(r"\b%s\b" % c_name, param):
+                return t
+        raise AssertionError(f"unknown C type in {param!r}")
+
     for name, (library, argtypes, _) in ck._SIGNATURES.items():
         src = (csrc / f"{library}.cu").read_text()
         proto = re.search(r"\b%s\(([^)]*)\)" % name, src)
         assert proto, name
         params = [a for a in proto.group(1).split(",") if a.strip()]
         assert len(argtypes) == len(params), name
+        assert [ctype(a) for a in params] == list(argtypes), name

@@ -1,6 +1,6 @@
 """Rank functions of the port's parallel clusters, for
 ``tests/test_torch_ring.py``, ``test_torch_sp.py``, ``test_torch_matmul.py``,
-``test_torch_tp.py`` and ``test_torch_hybrid.py``. They import
+``test_torch_tp.py``, ``test_torch_hybrid.py`` and ``test_torch_faults.py``. They import
 only the port (never jax), so that the spawned ranks start quickly; each
 returns numpy arrays and strings for the test process to compare."""
 
@@ -288,4 +288,142 @@ def hybrid_worker(state_dict, cfg, tokens, targets, steps, lr, momentum,
         name: {k: (tuple(v.shape) if v.dim() else float(v))
                for k, v in adamw.state[p].items()}
         for name, p in net.named_parameters()}
+    return out
+
+
+# ------------------------------------------------- collective faults F1-F4
+def fault_inputs(rank):
+    """Seeded f64 inputs of the gradient checks, per rank."""
+    rng = np.random.RandomState(40 + rank)
+    return {"ar": [rng.rand(*([5] * dim)) for dim in (1, 2, 3)],
+            "avg": rng.rand(4, 3), "mid": rng.rand(3, 3),
+            "ag": rng.rand(rank + 2, 3), "bc": rng.rand(3, 2)}
+
+
+def fault_grads(hvd, rank, world):
+    """Gradients through the eager collectives, by the reference's tests
+    (``tests/test_torch.py:421-510``); ``hvd`` is the port or the
+    reference's torch front end."""
+    x = {k: ([torch.from_numpy(a).requires_grad_() for a in v]
+             if isinstance(v, list) else torch.from_numpy(v).requires_grad_())
+         for k, v in fault_inputs(rank).items()}
+    out = {}
+    for i, t in enumerate(x["ar"]):
+        hvd.allreduce(t, name=f"g_ar{i}", op=hvd.Sum).backward(
+            torch.ones_like(t))
+        out[f"ar{i}"] = t.grad.numpy()
+    hvd.allreduce(x["avg"], name="g_ar_avg", op=hvd.Average).backward(
+        torch.ones(4, 3, dtype=torch.float64))
+    out["avg"] = x["avg"].grad.numpy()
+    hvd.allreduce(x["mid"] * 2, name="g_ar_mid", op=hvd.Sum).sum().backward()
+    out["mid"] = x["mid"].grad.numpy()
+    g = hvd.allgather(x["ag"], name="g_ag")
+    g.backward(torch.cat([torch.full((src + 2, 3), float(src + 1),
+                                     dtype=torch.float64)
+                          for src in range(world)]))
+    out["ag"] = x["ag"].grad.numpy()
+    hvd.broadcast(x["bc"], root_rank=0, name="g_bc").backward(
+        torch.ones(3, 2, dtype=torch.float64))
+    out["bc"] = x["bc"].grad.numpy()
+    return out
+
+
+def unused_params_step(hvd, rank):
+    """F1: rank 0's loss uses only ``a`` (gradient 1), rank 1's only ``b``
+    (gradient 100). ``zero_unused`` adds the other parameter times 0, which
+    the reference needs: its requests pair by name, so a parameter without
+    a gradient on some rank would never complete. Returns the gradients
+    after ``synchronize()`` and the parameters after an SGD step."""
+    a = torch.nn.Parameter(torch.zeros(4))
+    b = torch.nn.Parameter(torch.zeros(4))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([a, b], lr=0.1),
+                                   named_parameters=[("a", a), ("b", b)])
+    used, unused = (a, b) if rank == 0 else (b, a)
+    loss = (used * (1.0 if rank == 0 else 100.0)).sum()
+    if hvd.__name__ != "horovod_tpu_torch":
+        loss = loss + (unused * 0.0).sum()
+    loss.backward()
+    opt.synchronize()
+    grads = [p.grad.numpy().copy() for p in (a, b)]
+    with opt.skip_synchronize():
+        opt.step()
+    return grads, [p.detach().numpy().copy() for p in (a, b)]
+
+
+class _RankDependent(torch.nn.Module):
+    """A token model whose ``scale`` only rank 1 uses."""
+
+    def __init__(self, vocab):
+        super().__init__()
+        self.emb = torch.nn.Embedding(vocab, vocab)
+        self.scale = torch.nn.Parameter(torch.ones(vocab))
+
+    def forward(self, tok, pos_offset=0):
+        import horovod_tpu_torch as hvd
+
+        out = self.emb(tok)
+        return out * self.scale if hvd.rank() == 1 else out
+
+
+def fault_worker():
+    """One rank of ``tests/test_torch_faults.py``: F1 (unused parameters
+    in ``DistributedOptimizer`` and in the parallel step), F2 (mismatched
+    collectives raise on every rank, and the ranks go on), F3 (ragged and
+    0-dim allgather), F4 (gradients)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import make_dp_sp_mesh
+    from horovod_tpu_torch.parallel.sp_training import make_sp_train_step
+
+    torch.set_num_threads(1)  # two ranks beside other test workers
+    r, w = hvd.rank(), hvd.size()
+    out = {"f1": unused_params_step(hvd, r)}
+
+    torch.manual_seed(0)
+    model = _RankDependent(8)
+    step = make_sp_train_step(model, torch.optim.SGD(model.parameters(),
+                                                     lr=0.5),
+                              make_dp_sp_mesh(2, 1))
+    tokens = torch.arange(16).reshape(2, 8) % 8
+    step(tokens, (tokens + 1) % 8)
+    out["f1_sp"] = {n: p.detach().numpy().copy()
+                    for n, p in model.named_parameters()}
+
+    def error(fn):
+        try:
+            fn()
+        except hvd.HorovodInternalError as e:
+            return str(e)
+        return None
+
+    ones = torch.ones
+    out["f2"] = {
+        "shape": error(lambda: hvd.allreduce(
+            ones((2, 3) if r == 0 else (3, 2)), name="mismatch", op=hvd.Sum)),
+        "size": error(lambda: hvd.allreduce(
+            ones(4 if r == 0 else 5), name="size", op=hvd.Sum)),
+        "dtype": error(lambda: hvd.allreduce(
+            ones(2, dtype=torch.float32 if r == 0 else torch.float64),
+            name="dtmismatch", op=hvd.Sum)),
+        "op": error(lambda: hvd.allreduce(
+            ones(2), name="opmix", op=hvd.Sum if r == 0 else hvd.Average)),
+        "root": error(lambda: hvd.broadcast(ones(2), root_rank=r,
+                                            name="bcroot")),
+        "tail": error(lambda: hvd.allgather(
+            ones((2, 3) if r == 0 else (2, 4)), name="agerr")),
+    }
+    p = torch.nn.Parameter(torch.zeros(3 if r == 0 else 4))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
+                                   named_parameters=[("p", p)])
+    p.sum().backward()
+    out["f2"]["synchronize"] = error(opt.synchronize)
+    out["f2_after"] = hvd.allreduce(ones(3) * (r + 1), op=hvd.Sum).numpy()
+
+    out["f3"] = hvd.allgather(torch.full((r + 1, 2), float(r)),
+                              name="agv").numpy()
+    try:
+        hvd.allgather(torch.tensor(1.0))
+        out["f3_scalar"] = None
+    except ValueError as e:
+        out["f3_scalar"] = str(e)
+    out["f4"] = fault_grads(hvd, r, w)
     return out
