@@ -36,17 +36,20 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    parameters on all four ranks;
 5. checks that the SASS of the wgmma / TMA attention kernels (K5 and K7
    for bf16 at D = 64, ``flash_attention_sm90.cu``) holds HGMMA and prints
-   its HGMMA and UTMALDG counts; holds the LM kernels against their twins
-   on the card, to the stated
-   tolerances: flash attention forward K5 and backward K7 (bf16 and f32,
-   causal or not, head dims 32/64/128, T = 1000, BH = 1, offsets, the
-   strided q/k/v views of the model's qkv projection; K7 also with f32
+   its HGMMA, UTMALDG and UTMASTG counts; holds the LM kernels against
+   their twins on the card, to the stated tolerances: flash attention
+   forward K5 and backward K7 (bf16 and f32, causal or not, head dims
+   32/64/128, T = 1000, BH = 1, offsets, the strided q/k/v views of the
+   model's qkv projection; K7 also with f32
    outputs, and two K7 launches byte-equal), LayerNorm K8 ([8192, 1024]
-   bf16 and ragged widths) and AdamW K9 (the 292 leaves of GPT-2-medium and
-   odd lengths, mu in bf16 and f32, steps 1 and 10); and times kernel,
-   twin and the one PyTorch call that computes the same function (K7 also
-   as the autograd function calls it, making D = rowsum(dO * O) in its dq
-   kernel, against SDPA's backward, which makes its own);
+   bf16, the register pass's other widths and the general loop's ragged
+   and wide ones) and AdamW K9 (the 292 leaves of GPT-2-medium and odd lengths, mu
+   in bf16 and f32, steps 1 and 10); and times kernel, twin and the one
+   PyTorch call that computes the same function (K7 also as the autograd
+   function calls it, making D = rowsum(dO * O) in its dq kernel, against
+   SDPA's backward, which makes its own; K8 also as ``fused_layer_norm``
+   calls it, against ``F.layer_norm`` with gamma and beta already in x's
+   dtype);
 5b. trains GPT-2-medium (24 layers, d_model 1024, 16 heads, vocab 32768,
    seq 1024, batch 8, bf16) at world size 1 for 2 warm-up and 5 timed
    steps, in the default configuration (K5, K7) and with the fused
@@ -74,11 +77,15 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    attention is PyTorch's own; times a ring hop and the gradient allreduce;
 6d. does the same at medium widths, 2 layers, on a dp=2 x sp=2 grid with a
    global batch of 2 x 4096;
-7. holds the matmul kernel K10 (``matmul_2d``) against its twin on the
+7. checks that the SASS of K10's bf16 kernels (``matmul.cu``) holds
+   HGMMA, UTMALDG and UTMASTG (wgmma, TMA loads and stores); holds the
+   matmul kernel K10 (``matmul_2d``) against its twin on the
    card, to the stated tolerance: the fused matmul + reduce-scatter ring's
    chunks at GPT-2-medium widths and tp = 4 (the row-parallel MLP
    ``[2048, 1024] @ [1024, 1024]`` and the LM head ``[2048, 256] @ [256,
-   32768]``, bf16), f32, shapes of several tiles in M, K and N, and M = 8;
+   32768]``, bf16), f32, shapes of several tiles in M, K and N, M = 8, and
+   M = 520 on each of the bf16 kernel's two schedules (B resident, or A
+   and B streamed);
    checks two launches byte-equal; times kernel, twin and ``torch.matmul``
    (run right after phase 5, early in the process);
 7b. runs ``matmul_reduce_scatter`` on world size 4 (gloo, one card) at
@@ -601,10 +608,13 @@ def attention_cases(gen):
 SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
+
+
 def sass_counts(library: str) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each kernel of
-    the built ``csrc/<library>.cu``, by mangled kernel name, from
-    ``cuobjdump -sass``."""
+    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
+    instructions in each kernel of the built ``csrc/<library>.cu``, by
+    mangled kernel name, from ``cuobjdump -sass``."""
     from horovod_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -614,7 +624,7 @@ def sass_counts(library: str) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
@@ -631,7 +641,7 @@ def phase_lm_kernels(rate: float) -> dict:
 
     sass = {short: c for fn, c in sass_counts("flash_attention_sm90").items()
             for short in SM90_KERNELS if f"{short}_kernel" in fn}
-    log(f"phase 5: HGMMA / UTMALDG instructions in the SASS of "
+    log(f"phase 5: HGMMA / UTMALDG / UTMASTG instructions in the SASS of "
         f"flash_attention_sm90.cu: {sass}")
     if (sorted(sass) != sorted(SM90_KERNELS)
             or any(c["HGMMA"] == 0 for c in sass.values())):
@@ -693,7 +703,12 @@ def phase_lm_kernels(rate: float) -> dict:
     for shape, dt in (((8192, 1024), torch.bfloat16),
                       ((8192, 1000), torch.bfloat16),
                       ((513, 1001), torch.float32),
-                      ((300, 768), torch.float16), ((4, 77), torch.bfloat16)):
+                      ((300, 768), torch.float16), ((4, 77), torch.bfloat16),
+                      ((64, 2048), torch.bfloat16),
+                      ((100, 1280), torch.float16),
+                      ((256, 4096), torch.bfloat16),
+                      ((300, 1024), torch.float32),
+                      ((64, 512), torch.bfloat16)):
         n, d = shape
         x = (torch.randn(n, d, generator=gen, device="cuda") * 3
              + torch.rand(n, 1, generator=gen, device="cuda")).to(dt)
@@ -791,11 +806,13 @@ def phase_lm_kernels(rate: float) -> dict:
         torch.bfloat16)
     gm = torch.randn(1024, generator=gen, device="cuda")
     bt = torch.randn(1024, generator=gen, device="cuda")
+    # F.layer_norm takes gamma and beta in x's dtype: cast once, outside
+    # the timed call, so that the yardstick is the one call alone
+    g16, b16 = gm.to(x.dtype), bt.to(x.dtype)
     timed["layer_norm_fwd"] = (
         lambda: ck.layer_norm_fwd(x, gm, bt, 1e-6),
         lambda: ck.layer_norm_fwd_plain(x, gm, bt, 1e-6),
-        lambda: F.layer_norm(x, (1024,), gm.to(x.dtype), bt.to(x.dtype),
-                             1e-6),
+        lambda: F.layer_norm(x, (1024,), g16, b16, 1e-6),
         2 * x.numel() * 2 + 2 * 1024 * 4 + 2 * 8192 * 4, 8 * x.numel(),
         F32_RATE, ("ln_fwd",), "F.layer_norm")
     ps, gs, mus, nus, sc = adamw_timing
@@ -873,6 +890,29 @@ def phase_lm_kernels(rate: float) -> dict:
         f"{r['vs_library']:.3f}x; K5 against SDPA: "
         f"{out['flash_attention_fwd']['ms'] / out['flash_attention_fwd']['library_ms']:.3f}x"
         f" on {CARD}")
+
+    # K8 as the model calls it: fused_layer_norm with autograd recording
+    # (the reshape, _FusedLayerNorm.apply, the saved statistics)
+    from horovod_tpu_torch.ops.layer_norm import fused_layer_norm
+
+    t0 = time.perf_counter()
+    xg = x.detach().requires_grad_()
+    gp, bp = (t.detach().requires_grad_() for t in (gm, bt))
+
+    def k8_as_called():
+        return fused_layer_norm(xg, gp, bp, eps=1e-6)
+
+    ln = out["layer_norm_fwd"]
+    r = ln["as_called"] = {
+        "ms": cuda_ms(k8_as_called, 20),
+        "device_ms": device_ms(k8_as_called, 10, ("ln_fwd",))}
+    r["vs_library"] = r["ms"] / ln["library_ms"]
+    r["seconds"] = time.perf_counter() - t0
+    log(f"  layer_norm_fwd as fused_layer_norm calls it (autograd on): "
+        f"{r['ms']:.4f} ms (device {r['device_ms']}) against F.layer_norm's "
+        f"{ln['library_ms']:.4f} ms: {r['vs_library']:.3f}x; the wrapper "
+        f"alone {ln['ms'] / ln['library_ms']:.3f}x on {CARD} (timed in "
+        f"{r['seconds']:.2f} s)")
     out["sass"] = sass
     out["checks"] = checks
     return out
@@ -2009,13 +2049,26 @@ def phase_matmul_kernel(rate: float) -> dict:
     times of kernel, twin and ``torch.matmul`` (cuBLAS) at the chunks."""
     from horovod_tpu_torch.ops import cuda_kernels as ck
 
+    t0 = time.perf_counter()
+    sass = {fn: c for fn, c in sass_counts("matmul").items()
+            if "hvd_mm_wgmma" in fn}
+    log(f"phase 7: HGMMA / UTMALDG / UTMASTG instructions in the SASS of "
+        f"matmul.cu's bf16 kernels: {sass} (counted in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if len(sass) != 2 or any(0 in c.values() for c in sass.values()):
+        raise AssertionError(f"K10's bf16 kernels are not wgmma + TMA loads "
+                             f"and stores: {sass}")
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [(f"{name} chunk", (m, k, n), torch.bfloat16)
              for name, (m, k, n) in MM_CHUNKS.items()]
     cases += [("f32", (256, 512, 384), torch.float32),
               ("multi-tile bf16", (520, 384, 640), torch.bfloat16),
               ("multi-tile f32", (520, 384, 640), torch.float32),
-              ("M=8 bf16", (8, 128, 256), torch.bfloat16)]
+              ("M=8 bf16", (8, 128, 256), torch.bfloat16),
+              ("M=520 bf16, K=256, streaming", (520, 256, 16384),
+               torch.bfloat16),
+              ("M=520 bf16, resident B", (520, 256, 32768),
+               torch.bfloat16)]
     checks, worst, timed = [], 0.0, {}
     for what, (m, k, n), dt in cases:
         x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -2065,7 +2118,8 @@ def phase_matmul_kernel(rate: float) -> dict:
     row.update(name="matmul_2d", route="cuda", launches=0,
                source="horovod_tpu_torch/csrc/matmul.cu",
                replaces=REPLACES["matmul_2d"], max_abs_err=worst,
-               library="torch.matmul (cuBLAS)", chunks=out, checks=checks)
+               library="torch.matmul (cuBLAS)", chunks=out, checks=checks,
+               sass=sass)
     return row
 
 

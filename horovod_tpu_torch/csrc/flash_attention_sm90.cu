@@ -73,13 +73,16 @@
 // library needs no -lcuda; a map already encoded in this thread is
 // reused), passes them as __grid_constant__ parameters, launches on the
 // given stream without synchronising and returns a cudaError_t, with
-// hvd_flash_sm90_failure() naming the step that failed.
+// hvd_failure() naming the step that failed. The Hopper primitives and
+// host helpers are sm90.cuh's, shared with matmul.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -97,108 +100,16 @@ constexpr int kVec = kBN * 4;          // bytes of a tile's f32 lse or D
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ------------------------------------------------------------ primitives
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete. A phase that
-// never completes (a lost copy) traps after ~2^30 polls, seconds, instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 30)) __trap();
-  }
-}
-
 // A [64 rows, 64] bf16 box at (d 0, head h, row t, batch b).
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int h, int t, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
-      "r"(h), "r"(t), "r"(b)
-      : "memory");
+  tma_load_4d(dst, map, bar, 0, h, t, b);
 }
 
 // 64 f32 values of row bh of a [B * H, Tq] statistic, from element t.
 __device__ __forceinline__ void tma_vec(void* dst, const CUtensorMap* map,
                                         uint64_t* bar, int t, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(t),
-      "r"(bh)
-      : "memory");
-}
-
-// wgmma operand descriptor of a 64-row tile of 128-byte rows, 128B
-// swizzle, on a 1024-byte boundary: 8-row groups 1024 bytes apart (the
-// stride byte offset; the leading one is unused for this swizzle at N or
-// K = 64).
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
-  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
-         (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-constexpr uint64_t kStepK = 32 >> 4;     // K-major: 16 columns a step
-constexpr uint64_t kStepMN = 2048 >> 4;  // MN-major: 16 rows a step
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {  // every committed group done
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Ties registers to this point, so that the compiler neither reads an
-// accumulator before the wgmma that writes it has been waited for nor
-// reuses an A operand's registers while a wgmma may still read them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  tma_load_2d(dst, map, bar, t, bh);
 }
 
 #define HVD_ACC32                                                         \
@@ -311,15 +222,6 @@ __device__ __forceinline__ void store_acc(bf16* out, const float (&x)[32],
   }
 }
 
-// Aligns the dynamic shared memory to 1024 bytes (the 128B swizzle's
-// period, which the descriptors assume).
-template <typename S>
-__device__ __forceinline__ S& smem_as() {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  return *reinterpret_cast<S*>(smem_raw + pad);
-}
-
 // 2^x in one MUFU.EX2 (ex2.approx.ftz): results below 2^-126 flush to 0,
 // which p, rounded to bf16 before any product, cannot tell from theirs.
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -409,7 +311,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_init(&s.empty[i], kConsumerWarps);
     }
     mbar_init(&s.qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -579,7 +481,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_init(&s.empty[i], kConsumerWarps);
     }
     mbar_init(&s.qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -731,7 +633,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_init(&s.empty[i], kConsumerWarps);
     }
     mbar_init(&s.kvbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -813,61 +715,6 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda the runtime already loaded.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor maps this thread has encoded, by what they encode (a map holds
-// only an address and a geometry, so an equal key is an equal map): a
-// training step hands the same tensors to the kernels step after step, so
-// a launch mostly encodes nothing. Direct-mapped; a zero key (a null
-// pointer) never matches a real tensor.
-struct CachedMap {
-  uint64_t key[8];
-  CUtensorMap map;
-};
-constexpr int kCachedMaps = 64;
-thread_local CachedMap g_maps[kCachedMaps];
-
-template <typename Encode>
-bool cached_map(CUtensorMap* map, const uint64_t (&key)[8], Encode encode) {
-  uint64_t h = 0;
-  for (uint64_t k : key) h = (h ^ k) * 0x100000001b3ull;
-  CachedMap& slot = g_maps[(h >> 32) % kCachedMaps];
-  bool same = true;
-  for (int i = 0; i < 8; ++i) same = same && slot.key[i] == key[i];
-  if (same) {
-    *map = slot.map;
-    return true;
-  }
-  if (!encode(map)) return false;
-  slot.map = *map;
-  for (int i = 0; i < 8; ++i) slot.key[i] = key[i];
-  return true;
-}
-
 // A [B, T, H, 64] bf16 operand at p with element strides (sb, st, sh), read
 // as boxes of 64 rows of one head, 128B-swizzled; rows past T read as 0.
 bool rows_map(CUtensorMap* map, const void* p, int64_t sb, int64_t st,
@@ -918,38 +765,6 @@ bool vec_map(CUtensorMap* map, const void* p, int rows, int t, int ld) {
                           CU_TENSOR_MAP_L2_PROMOTION_NONE,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
   });
-}
-
-// What the last failed launcher call of this thread was doing.
-thread_local const char* g_failed = "";
-
-// cuTensorMapEncodeTiled is a libcuda call and needs a current context. A
-// thread that has made no runtime call yet has none: PyTorch's autograd
-// thread, whose first work in a backward can be this launcher, is one. A
-// runtime call binds the device's primary context, once per thread.
-bool context_bound() {
-  thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
-  return bound;
-}
-
-int failed(const char* what, cudaError_t e) {
-  g_failed = what;
-  return static_cast<int>(e);
-}
-
-// Shared memory of a kernel: its struct plus room to align it to 1024.
-template <typename S>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(S)) + 1024;
-}
-
-// The kernel's opt-in to dynamic shared memory above 48 KB, once per
-// process.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
 }
 
 }  // namespace
@@ -1053,6 +868,6 @@ const char* hvd_cuda_error_string(int err) {
 }
 
 // What the last failed launcher call of this thread was doing.
-const char* hvd_flash_sm90_failure() { return g_failed; }
+const char* hvd_failure() { return g_failed; }
 
 }  // extern "C"

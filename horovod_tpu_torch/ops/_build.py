@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), cached
 under ``build/torch_kernels/`` at the root of the checkout by a hash of the
-source and the flags. The build writes to a per-process temporary name and
-renames it into place, so ranks that start together never load a half-written
-library. Sources come only from this package.
+source, of every ``csrc`` header it includes (``#include "x.cuh"``, followed
+through the headers' own includes) and of the flags. The build writes to a
+per-process temporary name and renames it into place, so ranks that start
+together never load a half-written library. Sources come only from this
+package.
 
 ``--use_fast_math`` stays off: the quantizers' bits and the Adasum
 coefficients depend on IEEE division, and the quantizers' on denormals being
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,9 +50,30 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through another header, each once, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes()) if (CSRC / inc.decode()).is_file()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of ``name`` lives: a change to its source, to a
+    header it includes or to the flags names another library."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -15,7 +15,8 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
 * the AdamW update over many leaves at once (``adamw_update``),
   ``csrc/adamw.cu``;
 * the tiled matrix product of the fused matmul + reduce-scatter ring
-  (``matmul_2d``, with its tile rule ``matmul_tiles``), ``csrc/matmul.cu``.
+  (``matmul_2d``, with its tile rule ``matmul_tiles``), ``csrc/matmul.cu``
+  (bf16 on wgmma and TMA, with the Hopper helpers of ``csrc/sm90.cuh``).
 
 Each wrapper here
 
@@ -104,26 +105,27 @@ def _kernel(name: str):
     return lib, fn
 
 
-# The current stream of card ``index`` as a pointer-sized int, without
-# building a Stream object on every launch where torch allows.
+# The current stream of card ``index`` as a pointer-sized int, and the
+# current card's index, without building Stream or device objects on every
+# launch where torch allows.
 _stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
     lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current = getattr(torch._C, "_cuda_getDevice", None) or (
+    lambda: torch.cuda.current_device())
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch on ``device``'s current stream; the device is made current
+def _launch(name: str, index: int, *args) -> None:
+    """Launch on card ``index``'s current stream; the card is made current
     only when it is not already."""
-    lib, fn = _kernel(name)
-    current = torch.cuda.current_device()
-    index = current if device.index is None else device.index
-    if index == current:
+    lib, fn = _loaded.get(name) or _kernel(name)
+    if index == _current():
         err = fn(*args, _stream(index))
     else:
         with torch.cuda.device(index):
             err = fn(*args, _stream(index))
-    if err != 0:
+    if err:
         msg = lib.hvd_cuda_error_string(err).decode()
-        step = getattr(lib, "hvd_flash_sm90_failure", None)
+        step = getattr(lib, "hvd_failure", None)
         if step is not None:  # the launcher says what it was doing
             step.restype = ctypes.c_char_p
             msg += f", {step().decode()}"
@@ -224,7 +226,7 @@ def int8_quantize_2d(x2):
     q = torch.empty((rows, block), dtype=torch.int8, device=x2.device)
     s = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     if rows:
-        _launch("hvd_int8_quantize", x2.device, x2.data_ptr(),
+        _launch("hvd_int8_quantize", x2.get_device(), x2.data_ptr(),
                 _FLOATS[x2.dtype], q.data_ptr(), s.data_ptr(), rows, block)
         int8_quantize_2d.launches += 1
     return q, s
@@ -244,8 +246,8 @@ def int8_dequantize_2d(q2, s2):
         return int8_dequantize_2d_plain(q2, s2)
     y = torch.empty((rows, block), dtype=torch.float32, device=q2.device)
     if rows and block:
-        _launch("hvd_int8_dequantize", q2.device, q2.data_ptr(), s2.data_ptr(),
-                y.data_ptr(), rows, block)
+        _launch("hvd_int8_dequantize", q2.get_device(), q2.data_ptr(),
+                s2.data_ptr(), y.data_ptr(), rows, block)
         int8_dequantize_2d.launches += 1
     return y
 
@@ -261,7 +263,7 @@ def int8_quantize_pack_2d(x2):
     p = torch.empty((rows, block + PACK_SCALE_BYTES), dtype=torch.int8,
                     device=x2.device)
     if rows:
-        _launch("hvd_int8_quantize_pack", x2.device, x2.data_ptr(),
+        _launch("hvd_int8_quantize_pack", x2.get_device(), x2.data_ptr(),
                 _FLOATS[x2.dtype], p.data_ptr(), rows, block)
         int8_quantize_pack_2d.launches += 1
     return p
@@ -278,7 +280,7 @@ def int4_quantize_pack_2d(x2):
     p = torch.empty((rows, block // 2 + PACK_SCALE_BYTES), dtype=torch.int8,
                     device=x2.device)
     if rows:
-        _launch("hvd_int4_quantize_pack", x2.device, x2.data_ptr(),
+        _launch("hvd_int4_quantize_pack", x2.get_device(), x2.data_ptr(),
                 _FLOATS[x2.dtype], p.data_ptr(), rows, block)
         int4_quantize_pack_2d.launches += 1
     return p
@@ -307,9 +309,9 @@ def adasum_combine_pairs(a, b):
         scratch = torch.empty(
             (_kernel("hvd_adasum_scratch_floats")[1](m, n, dt),),
             dtype=torch.float32, device=a.device)
-        _launch("hvd_adasum_combine", a.device, a.data_ptr(), a.stride(0),
-                b.data_ptr(), b.stride(0), dt, out.data_ptr(), m, n,
-                scratch.data_ptr())
+        _launch("hvd_adasum_combine", a.get_device(), a.data_ptr(),
+                a.stride(0), b.data_ptr(), b.stride(0), dt, out.data_ptr(), m,
+                n, scratch.data_ptr())
         adasum_combine_pairs.launches += 1
     return out
 
@@ -472,12 +474,12 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, q_off=0,
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
     q, k, v = (_aligned_rows(t) for t in (q, k, v))
     if _hopper_route(q):
-        _launch("hvd_flash_fwd_sm90", q.device, *_operand_args(q, k, v), b,
-                h, tq, tk, q_off, k_off, int(causal), scale * _LOG2E,
-                out.data_ptr(), lse.data_ptr())
+        _launch("hvd_flash_fwd_sm90", q.get_device(),
+                *_operand_args(q, k, v), b, h, tq, tk, q_off, k_off,
+                int(causal), scale * _LOG2E, out.data_ptr(), lse.data_ptr())
     else:
         ptrs, strides = _operand_table(q, k, v)
-        _launch("hvd_flash_fwd", q.device, ctypes.addressof(ptrs),
+        _launch("hvd_flash_fwd", q.get_device(), ctypes.addressof(ptrs),
                 ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
                 tk, d, q_off, k_off, int(causal), scale * _LOG2E,
                 out.data_ptr(), lse.data_ptr())
@@ -555,7 +557,7 @@ def flash_attention_bwd(q, k, v, dout, lse, dd=None, *, out=None,
             out = _aligned_rows(out)
         else:
             dd = rows_of_ld(dd)
-        _launch("hvd_flash_bwd_sm90", q.device,
+        _launch("hvd_flash_bwd_sm90", q.get_device(),
                 *_operand_args(q, k, v, dout, out if make_d else q), b, h,
                 tq, tk, q_off, k_off, int(causal), scale, scale * _LOG2E,
                 lse.data_ptr(), dd.data_ptr(), ld, int(make_d),
@@ -563,7 +565,7 @@ def flash_attention_bwd(q, k, v, dout, lse, dd=None, *, out=None,
     else:
         lse, dd = lse.contiguous(), dd.contiguous()
         ptrs, strides = _operand_table(q, k, v, dout)
-        _launch("hvd_flash_bwd", q.device, ctypes.addressof(ptrs),
+        _launch("hvd_flash_bwd", q.get_device(), ctypes.addressof(ptrs),
                 ctypes.addressof(strides), _ATTN_DTYPES[q.dtype],
                 int(out_dtype == torch.float32), b, h, tq, tk, d, q_off,
                 k_off, int(causal), scale, scale * _LOG2E, lse.data_ptr(),
@@ -635,7 +637,7 @@ def flash_attention_step(q, k, v, m, l, o, *, causal=False, scale=None,
     if b and h and tq and tk:
         q, k, v = (_aligned_rows(t) for t in (q, k, v))
         ptrs, strides = _operand_table(q, k, v)
-        _launch("hvd_flash_step", q.device, ctypes.addressof(ptrs),
+        _launch("hvd_flash_step", q.get_device(), ctypes.addressof(ptrs),
                 ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
                 tk, d, q_off, k_off, int(causal), scale * _LOG2E,
                 m.data_ptr(), l.data_ptr(), o.data_ptr())
@@ -681,26 +683,34 @@ def layer_norm_fwd(x2, gamma, beta, eps: float = 1e-6):
     x's dtype, mean [N] f32, rstd [N] f32). Replaces
     ``pallas_kernels._ln_fused_fwd_call``; any D (no lane gate). gamma and
     beta are used in f32."""
+    y, stats = layer_norm_rows(x2, gamma, beta, eps)
+    return y, stats[0], stats[1]
+
+
+def layer_norm_rows(x2, gamma, beta, eps: float = 1e-6):
+    """:func:`layer_norm_fwd` with mean and rstd as the two rows of one
+    [2, N] f32 tensor (one allocation; the autograd function saves it
+    whole)."""
     _check_2d(x2, "layer_norm_fwd", _FLOATS)
     n, d = x2.shape
     for what, t in (("gamma", gamma), ("beta", beta)):
-        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != (d,)
+        if (not isinstance(t, torch.Tensor) or t.shape != (d,)
                 or t.device != x2.device or not t.is_floating_point()):
             raise ValueError(f"layer_norm_fwd: {what} must be a float [{d}] "
                              f"tensor on {x2.device}")
     if x2.device.type == "cpu":
-        return layer_norm_fwd_plain(x2, gamma, beta, eps)
+        y, mean, rstd = layer_norm_fwd_plain(x2, gamma, beta, eps)
+        return y, torch.stack((mean, rstd))
     y = torch.empty_like(x2)
-    mean = torch.empty((n,), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty((n,), dtype=torch.float32, device=x2.device)
+    stats = x2.new_empty((2, n), dtype=torch.float32)
     if n and d:
-        g = gamma.float().contiguous()
-        bt = beta.float().contiguous()
-        _launch("hvd_layer_norm_fwd", x2.device, x2.data_ptr(),
+        g, bt = gamma.float().contiguous(), beta.float().contiguous()
+        at = stats.data_ptr()
+        _launch("hvd_layer_norm_fwd", x2.get_device(), x2.data_ptr(),
                 _FLOATS[x2.dtype], g.data_ptr(), bt.data_ptr(), y.data_ptr(),
-                mean.data_ptr(), rstd.data_ptr(), n, d, float(eps))
+                at, at + 4 * n, n, d, float(eps))
         layer_norm_fwd.launches += 1
-    return y, mean, rstd
+    return y, stats
 
 
 # ------------------------------------------------------------------- adamw
@@ -762,7 +772,7 @@ def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
                      nu.data_ptr(), p.numel(), first]
             first += -(-p.numel() // per_block)
         table = torch.tensor(rows, dtype=torch.int64).to(dev)
-        _launch("hvd_adamw", dev, table.data_ptr(), len(leaves), first,
+        _launch("hvd_adamw", dev.index, table.data_ptr(), len(leaves), first,
                 _ADAMW_DTYPES[p_dtype], _ADAMW_DTYPES[mu_dtype], lr, ibc1,
                 ibc2, b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay)
         adamw_update.launches += 1
@@ -806,10 +816,11 @@ def matmul_2d_plain(x2, w2):
 
 def matmul_2d(x2, w2):
     """x2 [M, K] @ w2 [K, N], f32 or bf16 (one dtype), contiguous ->
-    [M, N] in that dtype, the sum accumulated in f32 (bf16: tensor cores;
-    f32: full f32 FMA, no TF32). Replaces ``pallas_kernels.matmul_2d``;
-    raises ``ValueError`` on mixed dtypes or a shape ``matmul_tiles``
-    refuses. Forward only, as the TPU kernel (no VJP)."""
+    [M, N] in that dtype, the sum accumulated in f32 (bf16: wgmma with TMA
+    loads and stores, a persistent kernel; f32: full f32 FMA, no TF32).
+    Replaces ``pallas_kernels.matmul_2d``; raises ``ValueError`` on mixed
+    dtypes or a shape ``matmul_tiles`` refuses. Forward only, as the TPU
+    kernel (no VJP)."""
     _check_2d(x2, "matmul_2d x", _MM_DTYPES)
     _check_2d(w2, "matmul_2d w", _MM_DTYPES)
     if x2.dtype != w2.dtype or x2.device != w2.device:
@@ -828,7 +839,7 @@ def matmul_2d(x2, w2):
         raise ValueError("matmul_2d: operands must start on a 16-byte "
                          "boundary")
     out = torch.empty((mdim, ndim), dtype=x2.dtype, device=x2.device)
-    _launch("hvd_matmul", x2.device, x2.data_ptr(), w2.data_ptr(),
+    _launch("hvd_matmul", x2.get_device(), x2.data_ptr(), w2.data_ptr(),
             _MM_DTYPES[x2.dtype], mdim, kdim, ndim, out.data_ptr())
     matmul_2d.launches += 1
     return out

@@ -1,10 +1,10 @@
 """LayerNorm over the last axis with the K8 forward (counterpart of
 ``pallas_kernels.fused_layer_norm``).
 
-The forward runs ``cuda_kernels.layer_norm_fwd`` and saves the f32 mean and
-rstd; the backward is the plain formula of the reference's
-``_ln_fused_vjp_bwd`` in PyTorch, on purpose, as in the reference. On CPU
-tensors the forward is the plain twin.
+The forward runs ``cuda_kernels.layer_norm_rows`` (K8) and saves the f32
+mean and rstd, one [2, N] tensor; the backward is the plain formula of the
+reference's ``_ln_fused_vjp_bwd`` in PyTorch, on purpose, as in the
+reference. On CPU tensors the forward is the plain twin.
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ from . import cuda_kernels as ck
 class _FusedLayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps: float):
-        y, mean, rstd = ck.layer_norm_fwd(x2, gamma, beta, eps)
-        ctx.save_for_backward(x2, mean, rstd, gamma)
+        y, stats = ck.layer_norm_rows(x2, gamma, beta, eps)
+        ctx.save_for_backward(x2, stats, gamma)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x2, mean, rstd, gamma = ctx.saved_tensors
+        x2, stats, gamma = ctx.saved_tensors
         d = x2.shape[1]
-        mu, rs = mean[:, None], rstd[:, None]
+        mu, rs = stats[:, :, None]
         xhat = (x2.float() - mu) * rs
         dyf = dy.float()
         g = dyf * gamma.float()

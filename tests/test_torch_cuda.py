@@ -1,7 +1,8 @@
 """The LM kernels against their plain twins on the card (K5, K7: flash
 attention; K8: LayerNorm; K9: AdamW; K6: the ring hop; K10: the matmul of
-the fused matmul + reduce-scatter), at small shapes, with the tolerances
-of ``chip_smoke.py`` phases 5, 6 and 7.
+the fused matmul + reduce-scatter), at small shapes and at the shapes
+where their paths part, with the tolerances of ``chip_smoke.py`` phases 5,
+6 and 7.
 
 Every test needs a CUDA device and skips without one. The module imports
 neither jax nor the reference, so that it runs where only PyTorch is
@@ -271,6 +272,29 @@ def test_hop_backward_above_the_diagonal_gives_exact_zeros(dtype):
             assert g.dtype == torch.float32 and not g.any()
 
 
+def _mm_bound(x, w, got, want):
+    """K10's bound against its twin (chip_smoke.py phase 7): 2 K 2^-24
+    (|x| @ |w|) plus one unit in the last place of the output."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mag = x.float().abs() @ w.float().abs()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}[x.dtype]
+    return (2 * x.shape[1] * 2.0 ** -24 * mag
+            + ulp * torch.maximum(got.float().abs(), want.float().abs()))
+
+
+def _mm_twin(x, w):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return ck.matmul_2d_plain(x, w)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 @pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (520, 384, 640)),
                                          (torch.float32, (264, 512, 384))])
 def test_matmul_matches_twin_and_counts_launches(dtype, shape):
@@ -281,18 +305,120 @@ def test_matmul_matches_twin_and_counts_launches(dtype, shape):
     gen = _gen()
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     w = torch.randn(k, n, generator=gen, device="cuda").to(dtype)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        want = ck.matmul_2d_plain(x, w)
-        mag = x.float().abs() @ w.float().abs()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want = _mm_twin(x, w)
     got = ck.matmul_2d(x, w)
     again = ck.matmul_2d(x, w)
     assert ck.launch_counts()["matmul_2d"] == 2
     assert got.dtype == dtype and torch.equal(got, again)
-    ulp = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}[dtype]
-    bound = (2 * k * 2.0 ** -24 * mag
-             + ulp * torch.maximum(got.float().abs(), want.float().abs()))
-    assert ((got.float() - want.float()).abs() <= bound).all()
+    assert ((got.float() - want.float()).abs()
+            <= _mm_bound(x, w, got, want)).all()
+
+
+MM_CASES = {  # (M, K, N) on each of K10's two schedules, ragged M on each
+    "lm_head chunk (resident B)": (2048, 256, 32768),
+    "M=520, resident B": (520, 256, 32768),
+    "M=8, resident B, K=128": (8, 128, 32768),
+    "M=520, K=256, streaming (too few columns for resident B)": (
+        520, 256, 16384),
+    "M=520, K=1024, streaming": (520, 1024, 1024),
+    "M=8, streaming": (8, 128, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MM_CASES))
+def test_matmul_wgmma_matches_twin(case):
+    """The bf16 wgmma / TMA kernels at the LM-head chunk and at ragged M on
+    each schedule (B resident for all of K, or A and B streamed): within
+    phase 7's bound of the twin, two launches byte-equal, nothing written
+    past row M (the TMA store clips the last tile)."""
+    m, k, n = MM_CASES[case]
+    gen = _gen()
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+    want = _mm_twin(x, w)
+    got = ck.matmul_2d(x, w)
+    again = ck.matmul_2d(x, w)
+    # the launcher itself, into the first m rows of a larger buffer: the
+    # rows after them must keep their value
+    buf = torch.full((m + 64, n), 7.0, device="cuda", dtype=torch.bfloat16)
+    ck._launch("hvd_matmul", x.get_device(), x.data_ptr(), w.data_ptr(), 1,
+               m, k, n, buf.data_ptr())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(buf[:m].view(torch.int16), got.view(torch.int16))
+    assert bool((buf[m:] == 7.0).all())
+    assert ((got.float() - want.float()).abs()
+            <= _mm_bound(x, w, got, want)).all()
+    assert ck.launch_counts()["matmul_2d"] == 2
+
+
+def test_matmul_launches_from_a_fresh_thread():
+    """K10's launcher encodes tensor maps, which needs a current context: a
+    thread that has made no CUDA runtime call still launches it and gets
+    the main thread's bytes."""
+    import threading
+
+    gen = _gen()
+    x = torch.randn(256, 256, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn(256, 512, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want = ck.matmul_2d(x, w)
+    spare = ck.matmul_2d(x, w)  # a freed block of the output's size
+    torch.cuda.synchronize()
+    del spare
+    got = {}
+
+    def run():
+        try:
+            got["out"] = ck.matmul_2d(x, w)
+        except Exception as e:  # reported by the main thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    assert torch.equal(got["out"].view(torch.int16), want.view(torch.int16))
+
+
+LN_EPS = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+          torch.float32: 2.0 ** -23}
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (4096, 1024)),   # the register pass, 4 chunks a lane
+    (torch.bfloat16, (64, 2048)),     # 8 chunks, gamma / beta from smem
+    (torch.float16, (100, 1280)),     # 5 chunks, the 6-chunk variant
+    (torch.float32, (300, 1001)),     # the general loop, one element a lane
+    (torch.bfloat16, (256, 4096)),    # the general loop, 16-byte accesses
+    (torch.float32, (300, 1024)),     # the register pass, 8 f32 chunks
+    (torch.bfloat16, (64, 512)),      # the register pass, 2 chunks
+])
+def test_layer_norm_paths_match_twin(dtype, shape):
+    """K8 on the register pass and on the general loop: y within one unit
+    in the last place (plus 1e-6 of the row's largest |y|), mean to 2e-6
+    of the row's largest |x|, rstd to 4e-6 relative, two launches
+    byte-equal."""
+    n, d = shape
+    gen = _gen()
+    x = (torch.randn(n, d, generator=gen, device="cuda") * 3
+         + torch.rand(n, 1, generator=gen, device="cuda")).to(dtype)
+    g, b = (torch.randn(d, generator=gen, device="cuda") for _ in "gb")
+    y, mean, rstd = ck.layer_norm_fwd(x, g, b, 1e-6)
+    y2, mean2, rstd2 = ck.layer_norm_fwd(x, g, b, 1e-6)
+    yt, mean_t, rstd_t = ck.layer_norm_fwd_plain(x, g, b, 1e-6)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["layer_norm_fwd"] == 2
+    assert y.dtype == dtype
+    bits = {2: torch.int16, 4: torch.int32}[y.element_size()]
+    assert torch.equal(y.view(bits), y2.view(bits))
+    assert torch.equal(mean, mean2) and torch.equal(rstd, rstd2)
+    yd, ytd = y.double(), yt.double()
+    bound = (LN_EPS[dtype] * torch.maximum(yd.abs(), ytd.abs())
+             + 1e-6 * ytd.abs().amax(1, keepdim=True))
+    assert ((yd - ytd).abs() <= bound).all()
+    assert ((mean - mean_t).abs() <= 2e-6 * x.float().abs().amax(1)).all()
+    assert ((rstd - rstd_t).abs() <= 4e-6 * rstd_t).all()

@@ -234,6 +234,41 @@ def test_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
 
 
+def test_library_path_hashes_the_included_headers(monkeypatch, tmp_path):
+    """A build is named by its source, every csrc header that source
+    includes (through another header too) and the flags: editing an
+    included header names another library, so no stale build is loaded;
+    editing a header nothing includes does not. No nvcc is needed."""
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b, first version\n")
+    (tmp_path / "other.cuh").write_text("// included by nothing\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "other.cuh").write_text("// changed\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, second version\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    assert _build.library_path("k") not in (first, second)
+
+
+@pytest.mark.parametrize("name", ["matmul", "flash_attention_sm90",
+                                  "layer_norm"])
+def test_sources_share_the_sm90_header(name):
+    """Only the wgmma / TMA sources take their Hopper helpers from
+    csrc/sm90.cuh, so its bytes are part of their libraries' hash; the
+    LayerNorm source and the others include no csrc header, so an edit of
+    those helpers rebuilds none of them."""
+    headers = [] if name == "layer_norm" else ["sm90.cuh"]
+    assert [p.name for p in _build.sources(name)] == [f"{name}.cu"] + headers
+    for other in ("wire_quant", "adasum", "flash_attention", "adamw"):
+        assert [p.name for p in _build.sources(other)] == [f"{other}.cu"]
+
+
 def test_import_hygiene_no_jax_no_reference():
     """A fresh interpreter importing the port (and its trainer) loads no
     jax and no module of the reference package; the sources say so too."""
