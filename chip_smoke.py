@@ -34,9 +34,10 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 4b. trains a ResNet-18 of width 8 at world size 4 (32x32, batch 4 per
    rank, 2 steps of Adasum: a two-level tree) and checks bit-identical
    parameters on all four ranks;
-5. checks that the SASS of the wgmma / TMA attention kernels (K5 and K7
-   for bf16 at D = 64, ``flash_attention_sm90.cu``) holds HGMMA and prints
-   its HGMMA, UTMALDG and UTMASTG counts; holds the LM kernels against
+5. checks that the SASS of the wgmma / TMA attention kernels (K5, the
+   ring step K6 and K7 for bf16 at D = 64, ``flash_attention_sm90.cu``)
+   holds HGMMA and UTMALDG and prints its HGMMA, UTMALDG and UTMASTG
+   counts; holds the LM kernels against
    their twins on the card, to the stated tolerances: flash attention
    forward K5 and backward K7 (bf16 and f32, causal or not, head dims
    32/64/128, T = 1000, BH = 1, offsets, the strided q/k/v views of the
@@ -155,7 +156,7 @@ WIRE = ("int8_quantize_2d", "int8_dequantize_2d", "int8_quantize_pack_2d",
 LM_SOURCES = {  # the source of the kernels the main path launches
     "flash_attention_fwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_bwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
-    "flash_attention_step": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_step": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
     "layer_norm_fwd": "horovod_tpu_torch/csrc/layer_norm.cu",
     "adamw_update": "horovod_tpu_torch/csrc/adamw.cu",
 }
@@ -605,7 +606,8 @@ def attention_cases(gen):
     return cases
 
 
-SM90_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+SM90_KERNELS = ("flash_fwd_sm90", "flash_fwd_step_sm90", "flash_bwd_dq_sm90",
+                "flash_bwd_dkv_sm90")
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
@@ -634,7 +636,8 @@ def sass_counts(library: str) -> dict:
 def phase_lm_kernels(rate: float) -> dict:
     """K5, K7, K8 and K9 against their twins on the card, at the main-path
     shapes and at ragged ones; two K7 launches byte-equal; times. First,
-    the SASS of the wgmma / TMA attention kernels must hold HGMMA."""
+    the SASS of the wgmma / TMA attention kernels (K5, K6, K7) must hold
+    HGMMA and UTMALDG."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import cuda_kernels as ck
@@ -644,8 +647,10 @@ def phase_lm_kernels(rate: float) -> dict:
     log(f"phase 5: HGMMA / UTMALDG / UTMASTG instructions in the SASS of "
         f"flash_attention_sm90.cu: {sass}")
     if (sorted(sass) != sorted(SM90_KERNELS)
-            or any(c["HGMMA"] == 0 for c in sass.values())):
-        raise AssertionError(f"K5 / K7 kernels without wgmma: {sass}")
+            or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                   for c in sass.values())):
+        raise AssertionError(f"K5 / K6 / K7 kernels without wgmma or TMA: "
+                             f"{sass}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     checks, worst = [], {}
 
@@ -689,7 +694,7 @@ def phase_lm_kernels(rate: float) -> dict:
             note("flash_attention_bwd", f"{name} out {out_dtype} dq/dk/dv "
                  f"(two launches byte-equal {same})", ok,
                  max(e for e, _ in er), max(r for _, r in er))
-        if ck._hopper_route(q):  # D made by the dq kernel from out
+        if ck._hopper_route(q.dtype, q.shape[3]):  # D made from out
             g = ck.flash_attention_bwd(q, k, v, do, lse, out=out, **kw)
             gt = ck.flash_attention_bwd_plain(q, k, v, do, lse, dd, **kw)
             er = [ratio_rows(a, b, ATTN_GRAD_TOL[q.dtype], dim=None)
@@ -1477,6 +1482,43 @@ def hop_bytes_ops(b, tq, tk, h, d, q_off, k_off, kernel):
         10 * d * pairs
 
 
+def fresh_carry(b, t, h, d):
+    """K6's carry before the first hop: m = -inf, l = 0, o = 0."""
+    return [torch.full((b, h, t), float("-inf"), device="cuda"),
+            torch.zeros(b, h, t, device="cuda"),
+            torch.zeros(b, t, h, d, device="cuda")]
+
+
+def ring_hop_inputs(ck, gen, b, t, h, d, dt):
+    """The three hops of rank 2 of a causal ring of RING["sp"] = 4 ranks
+    over a seeded ``[b, 4 t, h, d]`` sequence in ``dt``, as phase 6 checks
+    and times them:
+    ({"below" | "diagonal" | "above": (q, k, v, dO, lse, D, kwargs)},
+    carry). The carry is that of the hop over block 0 (the twin's), and lse
+    and D = rowsum(dO * O) are those of q's rows over the whole sequence
+    (K5's), which the ring's backward hops take. ``ck`` is the
+    ``cuda_kernels`` module of the checkout that runs."""
+    def rnd():
+        return torch.randn(b, RING["sp"] * t, h, d, generator=gen,
+                           device="cuda").to(dt)
+
+    q, k, v, do = (rnd() for _ in range(4))
+    scale, my = d ** -0.5, 2
+    qb, dob = q[:, my * t:(my + 1) * t], do[:, my * t:(my + 1) * t]
+    carry = ck.flash_attention_step_plain(
+        qb, k[:, :t], v[:, :t], *fresh_carry(b, t, h, d), causal=True,
+        scale=scale, q_off=my * t, k_off=0)
+    out, lse = ck.flash_attention_fwd(qb, k, v, causal=True, scale=scale,
+                                      q_off=my * t, k_off=0)
+    dd = (dob.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    hops = {}
+    for hop, src in (("below", my - 1), ("diagonal", my), ("above", my + 1)):
+        kb, vb = k[:, src * t:(src + 1) * t], v[:, src * t:(src + 1) * t]
+        kw = dict(causal=True, scale=scale, q_off=my * t, k_off=src * t)
+        hops[hop] = (qb, kb, vb, dob, lse, dd, kw)
+    return hops, carry
+
+
 def phase_ring_kernels(rate: float) -> dict:
     """K6 (flash_attention_step) and K7 with f32 outputs at hop offsets
     against their twins on the card: the three hops of rank 2 of a 4-rank
@@ -1497,11 +1539,6 @@ def phase_ring_kernels(rate: float) -> dict:
 
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-    def fresh_carry(b, t, h, d):
-        return [torch.full((b, h, t), float("-inf"), device="cuda"),
-                torch.zeros(b, h, t, device="cuda"),
-                torch.zeros(b, t, h, d, device="cuda")]
 
     def check_hop(what, q, k, v, do, carry, lse, dd, kw, hidden=False):
         dt = q.dtype
@@ -1528,35 +1565,18 @@ def phase_ring_kernels(rate: float) -> dict:
              + (" (exact zeros)" if hidden else ""), ok,
              max(e for e, _ in er), max(r for _, r in er))
 
-    sp = RING["sp"]
     main = None
     for name, b, t, h, d, dt in (
-            ("[1,4096,16,64] bf16", 1, RING["seq"] // sp, 16, 64,
+            ("[1,4096,16,64] bf16", 1, RING["seq"] // RING["sp"], 16, 64,
              torch.bfloat16),
             ("[2,1000,2,128] f32", 2, 1000, 2, 128, torch.float32)):
-        q, k, v, do = (rnd(b, sp * t, h, d, dtype=dt) for _ in range(4))
-        scale = d ** -0.5
-        my = 2
-        qb, dob = q[:, my * t:(my + 1) * t], do[:, my * t:(my + 1) * t]
-        # the carry of an earlier hop (block 0), and the global out / lse
-        # of q's rows, which the ring's backward hops take
-        carry = ck.flash_attention_step_plain(
-            qb, k[:, :t], v[:, :t], *fresh_carry(b, t, h, d), causal=True,
-            scale=scale, q_off=my * t, k_off=0)
-        out, lse = ck.flash_attention_fwd(qb, k, v, causal=True,
-                                          scale=scale, q_off=my * t, k_off=0)
-        dd = (dob.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        hops = {}
-        for hop, src in (("below", my - 1), ("diagonal", my),
-                         ("above", my + 1)):
-            kb, vb = k[:, src * t:(src + 1) * t], v[:, src * t:(src + 1) * t]
-            kw = dict(causal=True, scale=scale, q_off=my * t, k_off=src * t)
+        hops, carry = ring_hop_inputs(ck, gen, b, t, h, d, dt)
+        for hop, (qb, kb, vb, dob, lse, dd, kw) in hops.items():
             check_hop(f"{name} {hop} hop", qb, kb, vb, dob, carry, lse, dd,
                       kw, hidden=hop == "above")
-            hops[hop] = (qb, kb, vb, dob, lse, dd, kw)
         if main is None:
             main = (hops, carry, (b, t, h, d))
-        del q, k, v, do, out
+        del hops, carry
     # long shards: k/v of 16384 rows at BH = 1 (where the TPU streams them,
     # _flash_step_call_streaming), and the backward at Tq = Tk = 17408 (past
     # the TPU's fused dq cap: the streaming branch of _flash_bwd_hm)
@@ -1574,7 +1594,7 @@ def phase_ring_kernels(rate: float) -> dict:
     del q, k, v, do, out
     # Ulysses's shape: K5 and K7 (bf16 outputs) on the whole sequence and a
     # sp-th of the heads, against the twins taken head by head
-    t, h = RING["seq"], 16 // sp
+    t, h = RING["seq"], 16 // RING["sp"]
     q, k, v, do = (rnd(1, t, h, 64) for _ in range(4))
     kw = dict(causal=True, scale=0.125)
     out, lse = ck.flash_attention_fwd(q, k, v, **kw)

@@ -1,19 +1,37 @@
-// Flash attention forward K5 and backward K7 for Hopper (sm_90a) on wgmma
-// and TMA: the route of bf16 operands with D = 64 (the LM's heads) and bf16
-// gradients. The other routes (f32, D = 32 or 128, f32 gradients, the ring
-// step K6) stay in flash_attention.cu.
+// Flash attention forward K5, ring step K6 and backward K7 for Hopper
+// (sm_90a) on wgmma and TMA: the route of bf16 operands with D = 64 (the
+// LM's heads), with bf16 or f32 gradients. The other routes (f32 operands,
+// D = 32 or 128) stay in flash_attention.cu.
 //
 // Replaces, in horovod_tpu/ops/pallas_kernels.py:
 //   K5  _flash_fwd_once_call (:339): online-softmax attention with a
 //       normalized output in bf16 and the f32 row LSE in natural log units;
+//   K6  _flash_step_call (:497; kernel _flash_step_kernel :262) and
+//       _flash_step_call_streaming (:457; kernel _flash_step_stream_kernel
+//       :381), both over _flash_accum (:222): one hop of ring attention,
+//       K5's loop started from a carried (m, l, o) and ended without
+//       normalizing; k/v tiles stream at any length, so one kernel covers
+//       both;
 //   K7  _flash_bwd_fused (:923): dq, dk, dv in bf16 from q, k, v, dO, the
-//       LSE and D = rowsum(dO * O).
+//       LSE and D = rowsum(dO * O); with f32 outputs also what
+//       _flash_bwd_resident (:986) and the streaming branch of
+//       _flash_bwd_hm (:1084), the ring backward's hop, compute.
 //
 // Operands are [B, T, H, 64] bf16 tensors read through their strides (the
 // q, k, v views of a fused qkv projection in place; every stride a multiple
-// of 16 bytes). Outputs are contiguous: out, dq, dk, dv [B, T, H, 64]; lse
-// and D [B, H, Tq] f32. q_off and k_off are the global positions of row 0
-// of q and of k for the causal mask.
+// of 16 bytes). Outputs are contiguous: out, dq, dk, dv [B, T, H, 64] (dq,
+// dk, dv in bf16 or f32); lse and D [B, H, Tq] f32. q_off and k_off are the
+// global positions of row 0 of q and of k for the causal mask.
+//
+// K6's carry: m and l [B, H, Tq] f32, m in natural log units, and the
+// unnormalized o [B, Tq, H, 64] f32, read at the start and written in place
+// by the thread that read them. m enters base 2 once, m_in log2 e, and
+// leaves once, m ln 2, except that a row whose maximum the hop did not
+// raise gets m_in back bit for bit; l leaves summed over the row, not
+// divided into o. What the hop hides stays as it was: a block whose rows
+// see no key (causal, k_off past its last row) returns before touching
+// anything, a warpgroup whose 64 rows see none writes nothing, and rows
+// past Tq are neither read nor written.
 //
 // Arithmetic, the contract of flash_attention.cu: base-2 logits
 // s = (scale log2 e) q.k in f32; running max m and sum l in f32; p (and the
@@ -26,7 +44,11 @@
 //
 // Bound: at the main-path shape (B*H = 128, T = 1024, causal) the forward
 // moves 68 MB (20 us at 3.35 TB/s) for 17.2 GFLOP (17 us at the bf16
-// tensor-core peak), the backward 118 MB (35 us) for 43 GFLOP (43 us).
+// tensor-core peak), the backward 118 MB (35 us) for 43 GFLOP (43 us). At
+// the ring's hop below the diagonal ([1, 4096, 16, 64], every pair
+// visible) K6 moves 59.8 MB (18 us), its f32 carry in and out 33.6 MB of
+// it, for 68.7 GFLOP (69 us); K7 with f32 gradients 84 MB (25 us) for 172
+// GFLOP (174 us): both bound by operations.
 //
 // Design. A block is two consumer warpgroups, each owning 64 rows, and one
 // producer warp (warp 8): 288 threads. The producer's lane 0 issues TMA
@@ -39,12 +61,15 @@
 // a K-major operand (rows along M or N, D contiguous) advances 32 bytes a
 // step and an MN-major one (the transposed-B bit: V, K, Q or dO as [rows,
 // D] where D is the product's N) 2048 bytes (16 rows) a step.
-// * K5: S = Q K^T from shared memory into registers; the softmax runs on
-//   the accumulator layout (a thread holds 2 rows x 16 columns, a row's
-//   max and sum reduce over the 4 lanes of a quad); p is packed to bf16 in
-//   the register layout of wgmma's A operand, which is the accumulator's,
-//   and O += P V takes it from registers. Nothing of S touches shared
-//   memory.
+// * K5 and K6 (one body): S = Q K^T from shared memory into registers; the
+//   softmax runs on the accumulator layout (a thread holds 2 rows x 16
+//   columns, a row's max and sum reduce over the 4 lanes of a quad); p is
+//   packed to bf16 in the register layout of wgmma's A operand, which is
+//   the accumulator's, and O += P V takes it from registers. Nothing of S
+//   touches shared memory. K6 reads its o carry straight into the
+//   accumulator registers and writes them back with 8-byte accesses in the
+//   same layout; the carried l enters the quad's partial sums once, on the
+//   quad's first lane.
 // * K7, design (a): two kernels, deterministic by construction (each output
 //   row is summed by one warpgroup in a fixed tile order; no atomics).
 //   dq over q tiles: S = Q K^T and dP = dO V^T, dS = p (dP - D) scale in
@@ -54,7 +79,10 @@
 //   D of its own). dk+dv over k tiles computes the transposed scores
 //   S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T come out in the
 //   accumulator layout and feed dV += P^T dO and dK += dS^T Q from
-//   registers too: seven products, none staged through shared memory.
+//   registers too: seven products, none staged through shared memory. The
+//   epilogue writes the f32 sums as bf16 or, unrounded, as f32; rows whose
+//   keys (or queries) the mask hides entirely get exact zeros, which the
+//   ring adds.
 // Causal tiles past the diagonal are skipped, and only tiles that cross it
 // (or the ragged end) are masked: the element loops are compiled twice,
 // with and without the mask, because a mask tested element by element in
@@ -203,22 +231,51 @@ __device__ __forceinline__ int causal_lo(int64_t key, int q_off) {
   return num > 0 ? static_cast<int>((num + kBN - 1) / kBN) : 0;
 }
 
-// Writes a [64, 64] f32 accumulator as bf16 rows row0 + r (r < 64, row <
-// t) of the contiguous [B, t, H, 64] tensor out.
-__device__ __forceinline__ void store_acc(bf16* out, const float (&x)[32],
-                                          int b, int h, int H, int t,
-                                          int row0) {
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Writes a [64, 64] f32 accumulator (a warpgroup's) as rows row0 + r (r <
+// 64, row < t) of the contiguous [B, t, H, 64] tensor out: bf16 rounded to
+// nearest even, or f32 as summed.
+template <typename O>
+__device__ __forceinline__ void store_acc(O* out, const float (&x)[32], int b,
+                                          int h, int H, int t, int row0) {
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int ra = row0 + warp * 16 + (lane >> 2), col = 2 * (lane & 3);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = ra + 8 * half;
     if (r >= t) continue;
-    bf16* row = out + ((static_cast<int64_t>(b) * t + r) * H + h) * kD + col;
+    O* row = out + ((static_cast<int64_t>(b) * t + r) * H + h) * kD + col;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * i) = __floats2bfloat162_rn(
-          x[4 * i + 2 * half], x[4 * i + 2 * half + 1]);
+      store2(row + 8 * i, x[4 * i + 2 * half], x[4 * i + 2 * half + 1]);
+  }
+}
+
+// Reads rows row0 + r of the contiguous [B, t, H, 64] f32 tensor src into
+// an accumulator, in store_acc's layout; rows past t read as 0.
+__device__ __forceinline__ void load_acc(float (&x)[32], const float* src,
+                                         int b, int h, int H, int t,
+                                         int row0) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int ra = row0 + warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = ra + 8 * half;
+    const float* row =
+        src + ((static_cast<int64_t>(b) * t + r) * H + h) * kD + col;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 v = r < t ? *reinterpret_cast<const float2*>(row + 8 * i)
+                             : make_float2(0.f, 0.f);
+      x[4 * i + 2 * half] = v.x;
+      x[4 * i + 2 * half + 1] = v.y;
+    }
   }
 }
 
@@ -281,7 +338,7 @@ __device__ __forceinline__ void online_softmax(
   to_a_frags(x, p);
 }
 
-// ------------------------------------------------------------ K5 forward
+// ------------------------------------------------------ K5 and K6 forward
 struct FwdSmem {
   bf16 q[kWG][kBN * kD];
   bf16 k[kStages][kBN * kD];
@@ -289,13 +346,23 @@ struct FwdSmem {
   uint64_t full[kStages], empty[kStages], qbar;
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
-                      const __grid_constant__ CUtensorMap mk,
-                      const __grid_constant__ CUtensorMap mv,
-                      bf16* __restrict__ out, float* __restrict__ lse, int H,
-                      int tq, int tk, int q_off, int k_off, int causal,
-                      float scale_log2) {
+// K6's carry, updated in place (see the top of the file).
+struct Carry {
+  float* m;  // [B * H, tq], natural log units
+  float* l;  // [B * H, tq]
+  float* o;  // [B, tq, H, 64], unnormalized
+};
+
+// kStep = false: K5 (out, lse from an empty start; carry unused).
+// kStep = true: K6 (the carry in and out; out and lse unused).
+template <bool kStep>
+__device__ __forceinline__ void fwd_body(const CUtensorMap* mq,
+                                         const CUtensorMap* mk,
+                                         const CUtensorMap* mv, bf16* out,
+                                         float* lse, Carry carry, int H,
+                                         int tq, int tk, int q_off,
+                                         int k_off, int causal,
+                                         float scale_log2) {
   FwdSmem& s = smem_as<FwdSmem>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -305,6 +372,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   const int hi = causal ? causal_hi(static_cast<int64_t>(q_off) + q0 + kBM - 1,
                                     k_off, nk)
                         : nk;
+  // no key of the hop: the carry stays, and the whole block leaves before
+  // any barrier exists that a thread could wait on
+  if (kStep && hi == 0) return;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(&s.full[i], 1);
@@ -319,13 +389,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (lane == 0) {
       mbar_expect_tx(&s.qbar, kWG * kTile);
       for (int g = 0; g < kWG; ++g)
-        tma_rows(s.q[g], &mq, &s.qbar, h, q0 + g * kBN, b);
+        tma_rows(s.q[g], mq, &s.qbar, h, q0 + g * kBN, b);
       for (int kt = 0; kt < hi; ++kt) {
         const int st = kt % kStages;
         if (kt >= kStages) mbar_wait(&s.empty[st], (kt / kStages - 1) & 1);
         mbar_expect_tx(&s.full[st], 2 * kTile);
-        tma_rows(s.k[st], &mk, &s.full[st], h, kt * kBN, b);
-        tma_rows(s.v[st], &mv, &s.full[st], h, kt * kBN, b);
+        tma_rows(s.k[st], mk, &s.full[st], h, kt * kBN, b);
+        tma_rows(s.v[st], mv, &s.full[st], h, kt * kBN, b);
       }
     }
     return;
@@ -339,8 +409,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                                            kBN - 1, k_off, nk)
                            : nk;
   float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (kStep && hi_wg > 0) {
+    // the carried l enters the quad's partial sums once, on lane 0
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int qr = ra + 8 * r;
+      if (qr >= tq) continue;
+      const int64_t at = static_cast<int64_t>(bh) * tq + qr;
+      m[r] = carry.m[at] * kLog2e;
+      if ((lane & 3) == 0) l[r] = carry.l[at];
+    }
+    load_acc(o, carry.o, b, h, H, tq, r0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  }
   mbar_wait(&s.qbar, 0);
   const uint64_t q_desc = desc_sw128(s.q[wg]);
   // whether tile kt crosses the diagonal or the ragged end (for this
@@ -379,20 +462,60 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     __syncwarp();
     if (lane == 0) mbar_arrive(&s.empty[st]);
   }
-  float l_safe[2];
+  if (kStep && hi_wg == 0) return;  // rows that saw nothing keep their carry
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l_safe[r] = l[r] == 0.f ? 1.f : l[r];
-    const int qr = ra + 8 * r;
-    if ((lane & 3) == 0 && qr < tq)
-      lse[static_cast<int64_t>(bh) * tq + qr] =
-          (m[r] == -INFINITY ? 0.f : m[r] * kLn2) + logf(l_safe[r]);
   }
+  if constexpr (kStep) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = o[i] / l_safe[(i >> 1) & 1];
-  store_acc(out, o, b, h, H, tq, r0);
+    for (int r = 0; r < 2; ++r) {
+      const int qr = ra + 8 * r;
+      if ((lane & 3) == 0 && qr < tq) {
+        // m_in read again rather than held in registers through the loop
+        const int64_t at = static_cast<int64_t>(bh) * tq + qr;
+        const float m_in = carry.m[at];
+        carry.m[at] = m[r] == m_in * kLog2e ? m_in : m[r] * kLn2;
+        carry.l[at] = l[r];
+      }
+    }
+    store_acc(carry.o, o, b, h, H, tq, r0);
+  } else {
+    float l_safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_safe[r] = l[r] == 0.f ? 1.f : l[r];
+      const int qr = ra + 8 * r;
+      if ((lane & 3) == 0 && qr < tq)
+        lse[static_cast<int64_t>(bh) * tq + qr] =
+            (m[r] == -INFINITY ? 0.f : m[r] * kLn2) + logf(l_safe[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = o[i] / l_safe[(i >> 1) & 1];
+    store_acc(out, o, b, h, H, tq, r0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      bf16* __restrict__ out, float* __restrict__ lse, int H,
+                      int tq, int tk, int q_off, int k_off, int causal,
+                      float scale_log2) {
+  fwd_body<false>(&mq, &mk, &mv, out, lse, Carry{}, H, tq, tk, q_off, k_off,
+                  causal, scale_log2);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_step_sm90_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           Carry carry, int H, int tq, int tk, int q_off,
+                           int k_off, int causal, float scale_log2) {
+  fwd_body<true>(&mq, &mk, &mv, nullptr, nullptr, carry, H, tq, tk, q_off,
+                 k_off, causal, scale_log2);
 }
 
 // dS = p (dP - D) scale over the dq kernel's score tile x (a thread's rows
@@ -463,9 +586,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mdd,
                          const __grid_constant__ CUtensorMap mo,
                          float* __restrict__ dd_out, int ld,
-                         bf16* __restrict__ dq, int H, int tq, int tk,
-                         int q_off, int k_off, int causal, float scale,
-                         float scale_log2) {
+                         void* __restrict__ dq, int out_f32, int H, int tq,
+                         int tk, int q_off, int k_off, int causal,
+                         float scale, float scale_log2) {
   DqSmem& s = smem_as<DqSmem>();
   const bool make_d = dd_out != nullptr;  // D from O here, else read
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -596,7 +719,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     __syncwarp();
     if (lane == 0) mbar_arrive(&s.empty[st]);
   }
-  store_acc(dq, acc, b, h, H, tq, r0);
+  if (out_f32)
+    store_acc(static_cast<float*>(dq), acc, b, h, H, tq, r0);
+  else
+    store_acc(static_cast<bf16*>(dq), acc, b, h, H, tq, r0);
 }
 
 // ------------------------------------------------ K7 backward: dk and dv
@@ -617,9 +743,10 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mdo,
                           const __grid_constant__ CUtensorMap mlse,
                           const __grid_constant__ CUtensorMap mdd,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int tq, int tk, int q_off, int k_off, int causal,
-                          float scale, float scale_log2) {
+                          void* __restrict__ dk, void* __restrict__ dv,
+                          int out_f32, int H, int tq, int tk, int q_off,
+                          int k_off, int causal, float scale,
+                          float scale_log2) {
   DkvSmem& s = smem_as<DkvSmem>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -710,8 +837,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     __syncwarp();
     if (lane == 0) mbar_arrive(&s.empty[st]);
   }
-  store_acc(dk, ak, b, h, H, tk, kw);
-  store_acc(dv, av, b, h, H, tk, kw);
+  if (out_f32) {
+    store_acc(static_cast<float*>(dk), ak, b, h, H, tk, kw);
+    store_acc(static_cast<float*>(dv), av, b, h, H, tk, kw);
+  } else {
+    store_acc(static_cast<bf16*>(dk), ak, b, h, H, tk, kw);
+    store_acc(static_cast<bf16*>(dv), av, b, h, H, tk, kw);
+  }
 }
 
 // ------------------------------------------------------------------ host
@@ -767,6 +899,46 @@ bool vec_map(CUtensorMap* map, const void* p, int rows, int t, int ld) {
   });
 }
 
+// K5 (kStep = false: out, lse) or K6 (kStep = true: the carry).
+template <bool kStep>
+int launch_fwd(const void* q, int64_t q_sb, int64_t q_st, int64_t q_sh,
+               const void* k, int64_t k_sb, int64_t k_st, int64_t k_sh,
+               const void* v, int64_t v_sb, int64_t v_st, int64_t v_sh, int B,
+               int H, int tq, int tk, int q_off, int k_off, int causal,
+               float scale_log2, void* out, void* lse, Carry carry,
+               cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0)
+    return failed("checking the sizes", cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr)
+    return failed("finding cuTensorMapEncodeTiled", cudaErrorNotSupported);
+  if (!context_bound())
+    return failed("binding a context", cudaErrorInitializationError);
+  static const cudaError_t attr = [] {
+    if constexpr (kStep)
+      return allow_smem(flash_fwd_step_sm90_kernel, smem_bytes<FwdSmem>());
+    else
+      return allow_smem(flash_fwd_sm90_kernel, smem_bytes<FwdSmem>());
+  }();
+  if (attr != cudaSuccess) return failed("raising the smem limit", attr);
+  CUtensorMap mq, mk, mv;
+  if (!rows_map(&mq, q, q_sb, q_st, q_sh, B, H, tq) ||
+      !rows_map(&mk, k, k_sb, k_st, k_sh, B, H, tk) ||
+      !rows_map(&mv, v, v_sb, v_st, v_sh, B, H, tk))
+    return failed("encoding a tensor map", cudaErrorInvalidValue);
+  cudaGetLastError();  // an earlier call's error is not this launch's
+  const dim3 grid(B * H, (tq + kBM - 1) / kBM);
+  if constexpr (kStep)
+    flash_fwd_step_sm90_kernel<<<grid, kThreads, smem_bytes<FwdSmem>(),
+                                 stream>>>(mq, mk, mv, carry, H, tq, tk,
+                                           q_off, k_off, causal, scale_log2);
+  else
+    flash_fwd_sm90_kernel<<<grid, kThreads, smem_bytes<FwdSmem>(), stream>>>(
+        mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), H, tq,
+        tk, q_off, k_off, causal, scale_log2);
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : failed("launching the kernel", e);
+}
+
 }  // namespace
 
 extern "C" {
@@ -780,37 +952,40 @@ int hvd_flash_fwd_sm90(const void* q, int64_t q_sb, int64_t q_st,
                        int64_t v_sh, int B, int H, int tq, int tk, int q_off,
                        int k_off, int causal, float scale_log2, void* out,
                        void* lse, void* stream) {
-  if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0)
-    return failed("checking the sizes", cudaErrorInvalidValue);
-  if (encode_tiled() == nullptr)
-    return failed("finding cuTensorMapEncodeTiled", cudaErrorNotSupported);
-  if (!context_bound())
-    return failed("binding a context", cudaErrorInitializationError);
-  static const cudaError_t attr =
-      allow_smem(flash_fwd_sm90_kernel, smem_bytes<FwdSmem>());
-  if (attr != cudaSuccess) return failed("raising the smem limit", attr);
-  CUtensorMap mq, mk, mv;
-  if (!rows_map(&mq, q, q_sb, q_st, q_sh, B, H, tq) ||
-      !rows_map(&mk, k, k_sb, k_st, k_sh, B, H, tk) ||
-      !rows_map(&mv, v, v_sb, v_st, v_sh, B, H, tk))
-    return failed("encoding a tensor map", cudaErrorInvalidValue);
-  cudaGetLastError();  // an earlier call's error is not this launch's
-  const dim3 grid(B * H, (tq + kBM - 1) / kBM);
-  flash_fwd_sm90_kernel<<<grid, kThreads, smem_bytes<FwdSmem>(),
-                          static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), H, tq,
-      tk, q_off, k_off, causal, scale_log2);
-  const cudaError_t e = cudaGetLastError();
-  return e == cudaSuccess ? 0 : failed("launching the kernel", e);
+  return launch_fwd<false>(q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb,
+                           v_st, v_sh, B, H, tq, tk, q_off, k_off, causal,
+                           scale_log2, out, lse, Carry{},
+                           static_cast<cudaStream_t>(stream));
 }
 
-// K7 on the Hopper route (bf16 operands and gradients, D = 64): the dq
-// kernel, then the dk+dv kernel. q, k, v, dout as for hvd_flash_fwd_sm90;
-// lse, dd: [B, H, tq] f32 whose (b, h) rows lie ld floats apart (ld >= tq,
-// a multiple of 4). make_d = 1: the dq kernel computes D = rowsum(dO * O)
-// from out (the forward's output, strided like the operands) and writes it
-// into dd for the dk+dv kernel; make_d = 0: dd is given and out unused.
-// dq, dk, dv: contiguous [B, t, H, 64] bf16. Returns a cudaError_t.
+// One ring hop, K6, on the Hopper route (bf16, D = 64). q, k, v as for
+// hvd_flash_fwd_sm90; q_off and k_off are the hop's global positions of q
+// row 0 and k row 0. m, l: contiguous [B, H, tq] f32 (m in natural log
+// units); o: contiguous [B, tq, H, 64] f32, unnormalized. All three are
+// updated in place. Returns a cudaError_t.
+int hvd_flash_step_sm90(const void* q, int64_t q_sb, int64_t q_st,
+                        int64_t q_sh, const void* k, int64_t k_sb,
+                        int64_t k_st, int64_t k_sh, const void* v,
+                        int64_t v_sb, int64_t v_st, int64_t v_sh, int B, int H,
+                        int tq, int tk, int q_off, int k_off, int causal,
+                        float scale_log2, void* m, void* l, void* o,
+                        void* stream) {
+  const Carry carry{static_cast<float*>(m), static_cast<float*>(l),
+                    static_cast<float*>(o)};
+  return launch_fwd<true>(q, q_sb, q_st, q_sh, k, k_sb, k_st, k_sh, v, v_sb,
+                          v_st, v_sh, B, H, tq, tk, q_off, k_off, causal,
+                          scale_log2, nullptr, nullptr, carry,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K7 on the Hopper route (bf16 operands, D = 64): the dq kernel, then the
+// dk+dv kernel. q, k, v, dout as for hvd_flash_fwd_sm90; lse, dd: [B, H,
+// tq] f32 whose (b, h) rows lie ld floats apart (ld >= tq, a multiple of
+// 4). make_d = 1: the dq kernel computes D = rowsum(dO * O) from out (the
+// forward's output, strided like the operands) and writes it into dd for
+// the dk+dv kernel; make_d = 0: dd is given and out unused. dq, dk, dv:
+// contiguous [B, t, H, 64], f32 where out_f32 = 1, else bf16. Returns a
+// cudaError_t.
 int hvd_flash_bwd_sm90(const void* q, int64_t q_sb, int64_t q_st,
                        int64_t q_sh, const void* k, int64_t k_sb, int64_t k_st,
                        int64_t k_sh, const void* v, int64_t v_sb, int64_t v_st,
@@ -819,8 +994,8 @@ int hvd_flash_bwd_sm90(const void* q, int64_t q_sb, int64_t q_st,
                        int64_t out_sb, int64_t out_st, int64_t out_sh, int B,
                        int H, int tq, int tk, int q_off, int k_off, int causal,
                        float scale, float scale_log2, const void* lse,
-                       void* dd, int ld, int make_d, void* dq, void* dk,
-                       void* dv, void* stream) {
+                       void* dd, int ld, int make_d, int out_f32, void* dq,
+                       void* dk, void* dv, void* stream) {
   if (B <= 0 || H <= 0 || tq <= 0 || tk <= 0 || ld % 4 || ld < tq)
     return failed("checking the sizes", cudaErrorInvalidValue);
   if (encode_tiled() == nullptr)
@@ -849,16 +1024,14 @@ int hvd_flash_bwd_sm90(const void* q, int64_t q_sb, int64_t q_st,
   const dim3 gq(B * H, (tq + kBM - 1) / kBM);
   flash_bwd_dq_sm90_kernel<<<gq, kThreads, smem_bytes<DqSmem>(), st>>>(
       mq, mk, mv, mdo, mlse, mdd, mo,
-      make_d ? static_cast<float*>(dd) : nullptr, ld,
-      static_cast<bf16*>(dq), H, tq, tk, q_off, k_off, causal, scale,
-      scale_log2);
+      make_d ? static_cast<float*>(dd) : nullptr, ld, dq, out_f32, H, tq, tk,
+      q_off, k_off, causal, scale, scale_log2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return failed("launching the dq kernel", e);
   const dim3 gk(B * H, (tk + kBM - 1) / kBM);
   flash_bwd_dkv_sm90_kernel<<<gk, kThreads, smem_bytes<DkvSmem>(), st>>>(
-      mq, mk, mv, mdo, mlse, mdd, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, tq, tk, q_off, k_off, causal, scale,
-      scale_log2);
+      mq, mk, mv, mdo, mlse, mdd, dk, dv, out_f32, H, tq, tk, q_off, k_off,
+      causal, scale, scale_log2);
   e = cudaGetLastError();
   return e == cudaSuccess ? 0 : failed("launching the dk+dv kernel", e);
 }

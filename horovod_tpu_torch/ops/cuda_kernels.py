@@ -8,9 +8,10 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
   ``csrc/adasum.cu``;
 * flash attention, forward (``flash_attention_fwd``), the ring hop of
   sequence parallelism (``flash_attention_step``) and backward
-  (``flash_attention_bwd``), CUDA C++ in ``csrc/flash_attention.cu``,
-  and for bf16 at D = 64 with bf16 results (the LM's route) on wgmma and
-  TMA in ``csrc/flash_attention_sm90.cu``;
+  (``flash_attention_bwd``): for bf16 operands at D = 64 (the LM's heads,
+  with bf16 or f32 gradients) on wgmma and TMA in
+  ``csrc/flash_attention_sm90.cu``, for the rest CUDA C++ in
+  ``csrc/flash_attention.cu``;
 * the LayerNorm forward (``layer_norm_fwd``), ``csrc/layer_norm.cu``;
 * the AdamW update over many leaves at once (``adamw_update``),
   ``csrc/adamw.cu``;
@@ -76,9 +77,11 @@ _SIGNATURES = {
     # each operand as (pointer, sb, st, sh)
     "hvd_flash_fwd_sm90": ("flash_attention_sm90", [_P, _I64, _I64, _I64] * 3
                            + [_I] * 7 + [_F, _P, _P, _P], _I),
+    "hvd_flash_step_sm90": ("flash_attention_sm90", [_P, _I64, _I64, _I64] * 3
+                            + [_I] * 7 + [_F, _P, _P, _P, _P], _I),
     "hvd_flash_bwd_sm90": ("flash_attention_sm90", [_P, _I64, _I64, _I64] * 5
-                           + [_I] * 7 + [_F, _F, _P, _P, _I, _I] + [_P] * 4,
-                           _I),
+                           + [_I] * 7 + [_F, _F, _P, _P, _I, _I, _I]
+                           + [_P] * 4, _I),
     "hvd_layer_norm_fwd": ("layer_norm", [_P, _I] + [_P] * 5
                            + [_I64, _I64, _F, _P], _I),
     "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
@@ -429,12 +432,14 @@ def _aligned_rows(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _hopper_route(q, out_dtype=None) -> bool:
-    """bf16 operands with D = 64 and bf16 results take the wgmma / TMA
-    kernels of ``csrc/flash_attention_sm90.cu``; the rest the kernels of
-    ``csrc/flash_attention.cu``."""
-    return (q.dtype == torch.bfloat16 and q.shape[3] == 64
-            and out_dtype in (None, torch.bfloat16))
+def _hopper_route(dtype, d: int, out_dtype=None) -> bool:
+    """Whether a card call with operands of ``dtype``, head dim ``d`` and
+    (for the backward) gradients in ``out_dtype`` takes the wgmma / TMA
+    kernels of ``csrc/flash_attention_sm90.cu``: bf16 at D = 64 does, for
+    the forward, the ring step and the backward with bf16 or f32 gradients;
+    the rest takes ``csrc/flash_attention.cu``."""
+    return (dtype == torch.bfloat16 and d == 64
+            and out_dtype in (None, torch.bfloat16, torch.float32))
 
 
 def _operand_args(*ts):
@@ -473,7 +478,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, scale=None, q_off=0,
     out = q.new_empty((b, tq, h, d))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
     q, k, v = (_aligned_rows(t) for t in (q, k, v))
-    if _hopper_route(q):
+    if _hopper_route(q.dtype, d):
         _launch("hvd_flash_fwd_sm90", q.get_device(),
                 *_operand_args(q, k, v), b, h, tq, tk, q_off, k_off,
                 int(causal), scale * _LOG2E, out.data_ptr(), lse.data_ptr())
@@ -526,7 +531,8 @@ def flash_attention_bwd(q, k, v, dout, lse, dd=None, *, out=None,
         raise TypeError(f"flash_attention_bwd: out_dtype {out_dtype} is "
                         f"neither {q.dtype} nor float32")
     scale = d ** -0.5 if scale is None else float(scale)
-    hopper = q.device.type == "cuda" and _hopper_route(q, out_dtype)
+    hopper = (q.device.type == "cuda"
+              and _hopper_route(q.dtype, d, out_dtype))
     if dd is None and not hopper:
         dd = attention_delta(dout, out)
     if q.device.type == "cpu":
@@ -561,7 +567,8 @@ def flash_attention_bwd(q, k, v, dout, lse, dd=None, *, out=None,
                 *_operand_args(q, k, v, dout, out if make_d else q), b, h,
                 tq, tk, q_off, k_off, int(causal), scale, scale * _LOG2E,
                 lse.data_ptr(), dd.data_ptr(), ld, int(make_d),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+                int(out_dtype == torch.float32), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr())
     else:
         lse, dd = lse.contiguous(), dd.contiguous()
         ptrs, strides = _operand_table(q, k, v, dout)
@@ -621,7 +628,8 @@ def flash_attention_step(q, k, v, m, l, o, *, causal=False, scale=None,
     of q row 0 and k row 0. A hop that shows q no key leaves the carry bit
     for bit. Replaces ``pallas_kernels._flash_step_call`` (resident k/v)
     and ``_flash_step_call_streaming`` (streamed k/v): kernel K6 streams
-    its k/v tiles at any length. On the card D is 32, 64 or 128."""
+    its k/v tiles at any length. On the card D is 32, 64 or 128; bf16 at
+    D = 64 runs the wgmma / TMA kernel."""
     _check_attention(q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -636,11 +644,17 @@ def flash_attention_step(q, k, v, m, l, o, *, causal=False, scale=None,
         return m, l, o
     if b and h and tq and tk:
         q, k, v = (_aligned_rows(t) for t in (q, k, v))
-        ptrs, strides = _operand_table(q, k, v)
-        _launch("hvd_flash_step", q.get_device(), ctypes.addressof(ptrs),
-                ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h, tq,
-                tk, d, q_off, k_off, int(causal), scale * _LOG2E,
-                m.data_ptr(), l.data_ptr(), o.data_ptr())
+        if _hopper_route(q.dtype, d):
+            _launch("hvd_flash_step_sm90", q.get_device(),
+                    *_operand_args(q, k, v), b, h, tq, tk, q_off, k_off,
+                    int(causal), scale * _LOG2E, m.data_ptr(), l.data_ptr(),
+                    o.data_ptr())
+        else:
+            ptrs, strides = _operand_table(q, k, v)
+            _launch("hvd_flash_step", q.get_device(), ctypes.addressof(ptrs),
+                    ctypes.addressof(strides), _ATTN_DTYPES[q.dtype], b, h,
+                    tq, tk, d, q_off, k_off, int(causal), scale * _LOG2E,
+                    m.data_ptr(), l.data_ptr(), o.data_ptr())
         flash_attention_step.launches += 1
     return m, l, o
 

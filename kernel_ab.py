@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels of two checkouts of the port on one card: K5, K7, K8, K10.
+"""Time kernels of two checkouts of the port on one card: K5-K8, K10.
 
     python3 kernel_ab.py --parent DIR [--report PATH]
 
@@ -13,9 +13,21 @@ on the card shows. Every side times:
 * at the LM's attention shape (q, k, v the strided views of a ``[8, 1024,
   16, 3, 64]`` bf16 qkv tensor, causal): ``fwd``, ``flash_attention_fwd``
   (K5); ``bwd``, ``flash_attention_bwd`` with a given D = rowsum(dO * O)
-  (K7); ``bwd_as_called``, the backward as the autograd function calls it;
+  (K7); ``bwd_f32``, the same with f32 gradients (the contract of
+  ``_flash_bwd_resident``); ``bwd_as_called``, the backward as the
+  autograd function calls it;
   ``sdpa_fwd`` / ``sdpa_bwd``, ``F.scaled_dot_product_attention`` and its
   backward on the same inputs;
+* at the ring's hop (``chip_smoke.ring_hop_inputs``: phase 6's inputs,
+  q, k, v ``[1, 4096, 16, 64]`` bf16, rank 2 of a 4-rank causal ring),
+  below the diagonal (every pair visible) and on it: ``step_<hop>``,
+  ``flash_attention_step`` (K6) folding the hop into a carried (m, l, o);
+  ``bwd_f32_<hop>``, ``flash_attention_bwd`` with f32 gradients (K7 as the
+  ring's backward calls it); ``fwd_below``, K5 on the hop below the
+  diagonal (the same products as ``step_below`` without the carry); and,
+  as the nearest library call but not the same contract (no carry, bf16
+  gradients), ``sdpa_fwd_<hop>`` / ``sdpa_bwd_<hop>`` (``is_causal`` on
+  the diagonal hop only);
 * ``mm_lm_head`` / ``mm_mlp_out``: ``matmul_2d`` (K10) at the fused
   ring's two bf16 chunks, ``[2048, 256] @ [256, 32768]`` and ``[2048,
   1024] @ [1024, 1024]``, and ``torch.matmul`` on the same operands
@@ -28,9 +40,11 @@ on the card shows. Every side times:
 Each is the median of per-call CUDA-event times (ms), and for the kernels
 also the device time a call from ``torch.profiler`` (kernels whose name
 holds ``flash``, ``hvd_mm`` or ``ln_fwd``), both timed by ``chip_smoke.py``'s
-``cuda_ms`` and ``device_ms``. Then the host side of K8: ``host_us``,
-microseconds a call over 1000 back-to-back calls on the host clock without
-synchronising, of the three LayerNorm calls at ``[8192, 1024]`` and at
+``cuda_ms`` and ``device_ms``; ``step_<hop>`` updates its own copy of the
+carry in place, call after call, as phase 6 times it. Then the host side
+of K8: ``host_us``, microseconds a call over 1000 back-to-back calls on
+the host clock without synchronising, of the three LayerNorm calls at
+``[8192, 1024]`` and at
 ``[64, 1024]`` (where the device is idle most of the time, so the host's
 cost shows); and ``host_profile_us``, the functions that took the most
 time of their own (cProfile, which adds its own cost to each) over 1000
@@ -105,10 +119,33 @@ def layer_norm_host(torch, ck, fused_layer_norm) -> dict:
     return out
 
 
+def hop_calls(torch, F, ck, hop, q, k, v, do, lse, dd, kw, carry) -> dict:
+    """The calls timed at one ring hop (see the module's docstring)."""
+    scratch = [c.clone() for c in carry]
+    causal = kw["k_off"] == kw["q_off"]  # the diagonal hop
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sd = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    calls = {
+        f"step_{hop}": (lambda: ck.flash_attention_step(q, k, v, *scratch,
+                                                        **kw), "flash"),
+        f"bwd_f32_{hop}": (lambda: ck.flash_attention_bwd(
+            q, k, v, do, lse, dd, out_dtype=torch.float32, **kw), "flash"),
+        f"sdpa_fwd_{hop}": (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal), None),
+        f"sdpa_bwd_{hop}": (lambda: torch.autograd.grad(
+            sd, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), None),
+    }
+    if hop == "below":
+        calls["fwd_below"] = (lambda: ck.flash_attention_fwd(q, k, v, **kw),
+                              "flash")
+    return calls
+
+
 def worker(root: str) -> dict:
     """One side: this process imports the port from ``root`` and the
     timers from this checkout's ``chip_smoke.py``."""
-    from chip_smoke import cuda_ms, device_ms
+    from chip_smoke import RING, cuda_ms, device_ms, ring_hop_inputs
 
     sys.path.insert(0, root)
     import torch
@@ -137,6 +174,9 @@ def worker(root: str) -> dict:
                 "flash"),
         "bwd": (lambda: ck.flash_attention_bwd(q, k, v, do, lse, dd,
                                                causal=True), "flash"),
+        "bwd_f32": (lambda: ck.flash_attention_bwd(
+            q, k, v, do, lse, dd, causal=True, out_dtype=torch.float32),
+            "flash"),
         "bwd_as_called": (lambda: torch.autograd.grad(
             y, leaves, do, retain_graph=True), "flash"),
         "sdpa_fwd": (lambda: F.scaled_dot_product_attention(
@@ -144,6 +184,11 @@ def worker(root: str) -> dict:
         "sdpa_bwd": (lambda: torch.autograd.grad(
             sd, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), None),
     }
+    hops, carry = ring_hop_inputs(
+        ck, torch.Generator(device="cuda").manual_seed(6), 1,
+        RING["seq"] // RING["sp"], 16, 64, torch.bfloat16)
+    for hop in ("below", "diagonal"):
+        calls.update(hop_calls(torch, F, ck, hop, *hops[hop], carry))
     for chunk, (m, kd, n) in (("lm_head", (2048, 256, 32768)),
                               ("mlp_out", (2048, 1024, 1024))):
         xm = torch.randn(m, kd, generator=gen, device="cuda").to(

@@ -119,7 +119,7 @@ def test_hopper_attention_matches_twin(case):
     else:
         q, k, v = rnd(b, tq, h, 64), rnd(b, tk, h, 64), rnd(b, tk, h, 64)
     do = rnd(b, tq, h, 64)
-    assert ck._hopper_route(q)
+    assert ck._hopper_route(q.dtype, q.shape[3])
     kw = dict(causal=causal, scale=0.125, q_off=q_off, k_off=k_off)
     out, lse = ck.flash_attention_fwd(q, k, v, **kw)
     out_t, lse_t = ck.flash_attention_fwd_plain(q, k, v, **kw)
@@ -219,6 +219,26 @@ def test_layer_norm_and_adamw_match_twins():
     assert ck.launch_counts()["adamw_update"] == 1
 
 
+def _carry(gen, b, t, h, d):
+    """The carry of an earlier hop: finite m, positive l, o of either
+    sign."""
+    return [torch.randn(b, h, t, generator=gen, device="cuda"),
+            torch.rand(b, h, t, generator=gen, device="cuda") * 8 + 1,
+            torch.randn(b, t, h, d, generator=gen, device="cuda")]
+
+
+def _step_close(carry, twin, rel):
+    """K6's carry against the twin's with phase 6's tolerances: m infinite
+    in the same places and else to 1e-5 (1 + |m|), l to 1e-5 of its value,
+    o to ``rel`` of its largest |value|."""
+    (m, l, o), (mt, lt, ot) = carry, twin
+    assert torch.equal(torch.isinf(m), torch.isinf(mt))
+    fin = torch.isfinite(mt)
+    assert ((m - mt).abs()[fin] <= 1e-5 * (1 + mt.abs()[fin])).all()
+    assert ((l - lt).abs() <= 1e-5 * lt).all()
+    _rel_close(o, ot, rel)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ring_step_matches_twin_on_three_hops(dtype):
     """K6 on rank 1 of a 3-rank causal ring, the carry chained: the
@@ -247,11 +267,113 @@ def test_ring_step_matches_twin_on_three_hops(dtype):
         if src == 2:
             assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                        for a, b in zip(carry, before))
-        m, l, o = carry
-        assert ((m - twin[0]).abs() <= 1e-5 * (1 + twin[0].abs())).all()
-        assert ((l - twin[1]).abs() <= 1e-5 * twin[1]).all()
-        _rel_close(o, twin[2], rel)
+        _step_close(carry, twin, rel)
     assert ck.launch_counts()["flash_attention_step"] == 3
+
+
+def test_ring_step_keeps_the_carry_of_hidden_rows_bit_for_bit():
+    """K6 (bf16, the wgmma route) at a ragged T = 1000 with k_off = 192:
+    the first block's rows see no key (it returns at once), and the second
+    block's first warpgroup (rows 128..191) sees none while its second
+    does. The carry of rows 0..191 stays bit for bit; the rest matches the
+    twin."""
+    gen = _gen()
+    b, t, h, d = 2, 1000, 2, 64
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    carry = _carry(gen, b, t, h, d)
+    before = [c.clone() for c in carry]
+    kw = dict(causal=True, scale=0.125, q_off=0, k_off=192)
+    ck.flash_attention_step(q, k, v, *carry, **kw)
+    twin = ck.flash_attention_step_plain(q, k, v, *before, **kw)
+    torch.cuda.synchronize()
+    m, l, o = carry
+    for got, was in ((m[..., :192], before[0][..., :192]),
+                     (l[..., :192], before[1][..., :192]),
+                     (o[:, :192], before[2][:, :192])):
+        assert torch.equal(got.view(torch.int32), was.view(torch.int32))
+    _step_close(carry, twin, BF16_EPS)
+    assert ck.launch_counts()["flash_attention_step"] == 1
+
+
+def test_ring_step_streams_long_keys_at_one_head():
+    """K6 (bf16) with Tq = 4096 against Tk = 16384 at B = H = 1, the last
+    rank's hop of a 16384-token sequence in one step, from an empty carry:
+    the carry matches the twin."""
+    gen = _gen()
+    q = torch.randn(1, 4096, 1, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, 16384, 1, 64, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    carry = [torch.full((1, 1, 4096), float("-inf"), device="cuda"),
+             torch.zeros(1, 1, 4096, device="cuda"),
+             torch.zeros(1, 4096, 1, 64, device="cuda")]
+    kw = dict(causal=True, scale=0.125, q_off=12288, k_off=0)
+    twin = ck.flash_attention_step_plain(q, k, v, *carry, **kw)
+    ck.flash_attention_step(q, k, v, *carry, **kw)
+    torch.cuda.synchronize()
+    _step_close(carry, twin, BF16_EPS)
+
+
+@pytest.mark.parametrize("src", [0, 1], ids=["below", "diagonal"])
+def test_hop_backward_f32_matches_twin_and_repeats_bytes(src):
+    """K7 with f32 gradients (bf16 operands, the wgmma route) on rank 1 of
+    a 2-rank causal ring of 2 x 200 rows, at the hop below the diagonal
+    and on it, with the global lse and D: each gradient within 2^-6 of its
+    largest |value| of the twin's, and two launches byte-equal."""
+    gen = _gen()
+    t, h = 200, 2
+    q, k, v, do = (torch.randn(1, 2 * t, h, 64, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qb, dob = q[:, t:], do[:, t:]
+    out, lse = ck.flash_attention_fwd(qb, k, v, causal=True, scale=0.125,
+                                      q_off=t, k_off=0)
+    dd = (dob.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    kb, vb = k[:, src * t:(src + 1) * t], v[:, src * t:(src + 1) * t]
+    kw = dict(causal=True, scale=0.125, q_off=t, k_off=src * t,
+              out_dtype=torch.float32)
+    got = ck.flash_attention_bwd(qb, kb, vb, dob, lse, dd, **kw)
+    again = ck.flash_attention_bwd(qb, kb, vb, dob, lse, dd, **kw)
+    want = ck.flash_attention_bwd_plain(qb, kb, vb, dob, lse, dd, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+        _rel_close(g, w, 2.0 ** -6)
+    assert ck.launch_counts()["flash_attention_bwd"] == 2
+
+
+def test_ring_step_launches_from_a_fresh_thread():
+    """K6's launcher encodes tensor maps, which needs a current context: a
+    thread that has made no CUDA runtime call still launches it (in place,
+    so it allocates nothing) and gets the main thread's bytes."""
+    import threading
+
+    gen = _gen()
+    q, k, v = (torch.randn(1, 256, 2, 64, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    start = _carry(gen, 1, 256, 2, 64)
+    kw = dict(causal=True, scale=0.125, q_off=256, k_off=0)
+    want = [c.clone() for c in start]
+    ck.flash_attention_step(q, k, v, *want, **kw)
+    got = [c.clone() for c in start]
+    torch.cuda.synchronize()
+    error = []
+
+    def run():
+        try:
+            ck.flash_attention_step(q, k, v, *got, **kw)
+        except Exception as e:  # reported by the main thread
+            error.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert not error, error
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,6 +16,9 @@ Tolerances (f32):
 bf16 (operands rounded to bf16 on both sides, p and dS rounded before their
 products): 2^-6 of each tensor's largest |value|, the kernels' own bound
 on the card.
+
+Which source a call on the card would launch is a pure function of the
+operands' dtype, the head dim and the gradients' dtype, pinned here too.
 """
 
 import jax
@@ -216,3 +219,34 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
             with pytest.raises(TypeError, match="out_dtype"):
                 ck.flash_attention_bwd(q, q, q, q, lse, lse,
                                        out_dtype=torch.float16)
+
+
+LAUNCHERS = {"fwd": "hvd_flash_fwd", "step": "hvd_flash_step",
+             "bwd": "hvd_flash_bwd"}
+ROUTE_CASES = [  # (operand dtype, D, kernel, gradients' dtype)
+    (dtype, d, kernel, out_dtype)
+    for dtype in (torch.float32, torch.bfloat16) for d in (32, 64, 128)
+    for kernel, out_dtype in (("fwd", None), ("step", None), ("bwd", None),
+                              ("bwd", dtype), ("bwd", torch.float32))
+    if (kernel, out_dtype) != ("bwd", torch.float32)
+    or dtype != torch.float32]
+
+
+@pytest.mark.parametrize("dtype,d,kernel,out_dtype", ROUTE_CASES, ids=[
+    f"{str(c[0])[6:]}-D{c[1]}-{c[2]}" + (f"-{str(c[3])[6:]}-grads"
+                                          if c[3] else "")
+    for c in ROUTE_CASES])
+def test_card_route_by_dtype_head_dim_and_gradients(dtype, d, kernel,
+                                                    out_dtype):
+    """bf16 operands at D = 64 take the wgmma / TMA kernels of
+    ``flash_attention_sm90.cu`` for the forward (K5), the ring step (K6)
+    and the backward (K7) with bf16 or f32 gradients; f32 operands and D =
+    32 or 128 stay on ``flash_attention.cu``. The launcher a wrapper calls
+    is ``LAUNCHERS[kernel]``, with ``_sm90`` where ``_hopper_route`` holds;
+    its library is the source that runs."""
+    hopper = ck._hopper_route(dtype, d, out_dtype)
+    library = ck._SIGNATURES[LAUNCHERS[kernel] + ("_sm90" if hopper
+                                                  else "")][0]
+    want = ("flash_attention_sm90" if (dtype, d) == (torch.bfloat16, 64)
+            else "flash_attention")
+    assert library == want

@@ -208,14 +208,15 @@ def test_signatures_match_the_c_prototypes():
     passes the stream as a 32-bit int. Each argument's type matches too: a
     pointer is ``c_void_p``, an ``int64_t`` ``c_int64``, an ``int``
     ``c_int`` and a ``float`` ``c_float`` (a 64-bit stride declared as an
-    int would be cut to 32 bits). The Hopper attention launchers are among
-    them."""
+    int would be cut to 32 bits). The Hopper attention launchers (K5, the
+    ring step K6 and K7) are among them."""
     import ctypes
     import re
     from pathlib import Path
 
     csrc = Path(ck.__file__).resolve().parent.parent / "csrc"
-    assert {"hvd_flash_fwd_sm90", "hvd_flash_bwd_sm90"} <= set(ck._SIGNATURES)
+    assert {"hvd_flash_fwd_sm90", "hvd_flash_step_sm90",
+            "hvd_flash_bwd_sm90"} <= set(ck._SIGNATURES)
 
     def ctype(param: str):
         if "*" in param:
