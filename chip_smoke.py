@@ -9,7 +9,12 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 
 1. holds each wire kernel against its plain-PyTorch twin on the card, byte
    for byte, at the main-path shape (the flat ResNet-50 gradient as
-   ``[rows, 256]``) and at ragged shapes, and times both;
+   ``[rows, 256]``) and at ragged shapes, and the int8 quantize's many-leaf
+   launch (``int8_quantize_2d_many``) over ResNet-50's 161 leaves and five
+   edge leaves (a ragged one, an all-zero one, one with a NaN, a bf16
+   pair) against its twin and against the quantize of each leaf; times
+   kernel and twin, with each kernel's device time, and the many-leaf
+   launch against the 161 per-leaf launches;
 1b. holds the Adasum combine kernel against its twin on the card, to the
    stated tolerance (the two reduce in different orders), at the largest
    ResNet-50 leaf ``[1, 2359296]`` and a world-8 tree level
@@ -18,10 +23,12 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    times kernel and twin;
 2. trains ResNet-50 at full width (batch 256, 224x224, bf16 autocast) at
    world size 1 through ``DistributedOptimizer(int8, error_feedback=True)``,
-   whose error-feedback roundtrip runs the int8 quantize and dequantize
-   kernels on every gradient leaf; measures the same step without
-   compression and profiles two steps; and checks a small model against
-   the same training on the CPU;
+   whose error-feedback roundtrip runs the int8 quantize over every
+   gradient leaf in one launch, and the dequantize once, each step (the
+   check: at least one and at most a leaf table's worth of launches of
+   each a step); measures the same step without compression and profiles
+   two steps (the wire kernels' device time); and checks a small model
+   against the same training on the CPU;
 3. trains ResNet-50 at world size 2 (two gloo processes sharing the card) on
    the packed int8 wire and then the int4 wire, and checks that the
    parameters are bit-identical on both ranks;
@@ -153,6 +160,9 @@ REPLACES = {
 }
 WIRE = ("int8_quantize_2d", "int8_dequantize_2d", "int8_quantize_pack_2d",
         "int4_quantize_pack_2d")
+# profiler names of #1's kernels: the register path's tile kernel (which
+# #3 shares) and the general loop
+WIRE_Q = ("int8_quant_tiles", "int8_quant_rows")
 LM_SOURCES = {  # the source of the kernels the main path launches
     "flash_attention_fwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
     "flash_attention_bwd": "horovod_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -243,6 +253,58 @@ def gradient_like(rows: int, block: int, gen: torch.Generator,
     return x.to(dtype).contiguous()
 
 
+def resnet50_leaves(gen: torch.Generator) -> list:
+    """Seeded normal values in the shape of each ResNet-50 gradient leaf,
+    f32 on the card."""
+    from horovod_tpu_torch.models import resnet
+
+    return [torch.randn(p.shape, generator=gen, device="cuda")
+            for p in resnet.ResNet50().parameters()]
+
+
+def wire_edge_leaves(gen: torch.Generator) -> list:
+    """Leaves that a step's gradients do not show at the main shape: one
+    that is not a whole number of blocks, an all-zero one, one with a NaN
+    (f32), and a bf16 group (one of them a whole block), the first bf16
+    leaf between f32 ones (rows the f32 launch does not own)."""
+    ragged = torch.randn(4 * BLOCK + 77, generator=gen, device="cuda")
+    zero = torch.zeros(3 * BLOCK + 17, device="cuda")
+    nan = torch.randn(700, generator=gen, device="cuda")
+    nan[333] = float("nan")
+    bf16 = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+            for n in (2 * BLOCK + 1, BLOCK)]
+    return [ragged, bf16[0], zero, nan, bf16[1]]
+
+
+def check_grouped_quantize(ck, leaves) -> tuple:
+    """The grouped #1 over ``leaves`` against its twin (every scale bit for
+    bit, and every q byte of the rows whose scale is not NaN: the twin's
+    int8 of NaN is undefined) and against #1 on each leaf padded by hand
+    (every byte); and its launches (one per dtype and table-full). Returns
+    (ok, max |q - twin|, launches)."""
+    import torch.nn.functional as F
+
+    before = ck.launch_counts()["int8_quantize_2d"]
+    q, s = ck.int8_quantize_2d_many(leaves, BLOCK)
+    launches = ck.launch_counts()["int8_quantize_2d"] - before
+    qt, st = ck.int8_quantize_2d_many_plain(leaves, BLOCK)
+    keep = ~torch.isnan(st[:, 0])
+    ok = bits_equal(s, st) and bool(torch.equal(q[keep], qt[keep]))
+    err = float((q[keep].int() - qt[keep].int()).abs().max())
+    row = 0
+    for t in leaves:
+        rows = -(-t.numel() // BLOCK)
+        qi, si = ck.int8_quantize_2d(F.pad(
+            t.reshape(-1), (0, rows * BLOCK - t.numel())).reshape(rows, BLOCK))
+        ok = (ok and bits_equal(q[row:row + rows], qi)
+              and bits_equal(s[row:row + rows], si))
+        row += rows
+    per_table = ck._kernel("hvd_int8_table_leaves")[1]()
+    want = sum(-(-sum(1 for t in leaves if t.dtype == dt) // per_table)
+               for dt in {t.dtype for t in leaves})
+    return ok and row == q.shape[0] and launches == want, err, launches
+
+
 # --------------------------------------------------------------- phase 1
 def phase_kernels(rate: float) -> dict:
     from horovod_tpu_torch.ops import cuda_kernels as ck
@@ -279,11 +341,19 @@ def phase_kernels(rate: float) -> dict:
     _, sn = ck.int8_quantize_2d(xn)
     nan_ok = bool(torch.isnan(sn[2]).item()) and bits_equal(
         sn[[0, 1, 3]], ck.int8_quantize_2d_plain(xn)[1][[0, 1, 3]])
+    # the grouped #1 over a step's leaves and the edge leaves
+    leaves = resnet50_leaves(gen)
+    grouped_ok, grouped_err, grouped_launches = check_grouped_quantize(
+        ck, leaves + wire_edge_leaves(gen))
+    checks["int8_quantize_2d"].append(
+        (("many", len(leaves) + 5, BLOCK), grouped_ok, grouped_err))
     torch.cuda.synchronize()
     failed = [(k, shape) for k, cs in checks.items() for shape, ok, _ in cs
               if not ok]
     log(f"phase 1: kernel == plain on the card: {not failed} "
-        f"(nan row scale pinned: {nan_ok})")
+        f"(nan row scale pinned: {nan_ok}; grouped #1 over {len(leaves)} "
+        f"ResNet-50 leaves + 5 edge leaves in {grouped_launches} launches "
+        f"== twin and per-leaf #1: {grouped_ok})")
     if failed or not nan_ok:
         raise AssertionError(f"kernel differs from its plain twin: {failed}")
 
@@ -312,9 +382,16 @@ def phase_kernels(rate: float) -> dict:
     }
     if not bits_equal(torch.mul(q, s), ck.int8_dequantize_2d(q, s)):
         raise AssertionError("torch.mul(q, s) is not the dequantize")
+    # each call launches one kernel: #1 and #3 share the register path's
+    # tile kernel and have a general loop each
+    match = {"int8_quantize_2d": WIRE_Q,
+             "int8_dequantize_2d": ("int8_dequant",),
+             "int8_quantize_pack_2d": ("int8_quant_tiles", "int8_quant_pack"),
+             "int4_quantize_pack_2d": ("int4_quant_pack",)}
     out = {}
     for name, (kern, plain, library, nbytes, ops) in work.items():
         ms = cuda_ms(kern, 50)
+        dev_ms = device_ms(kern, 20, match[name])
         plain_ms = cuda_ms(plain, 10)
         library_ms = cuda_ms(library, 10) if library else None
         bytes_ms = nbytes / rate * 1e3
@@ -327,12 +404,32 @@ def phase_kernels(rate: float) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "shape": [rows, BLOCK], "bytes": nbytes,
-            "GBps": nbytes / ms / 1e6,
+            "GBps": nbytes / ms / 1e6, "device_ms": dev_ms,
         }
         lib = f", library {library_ms:.4f} ms" if library else ""
-        log(f"  {name}: [{rows}, {BLOCK}] f32 kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms{lib}, {nbytes} bytes, bound {bytes_ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.0f} GB/s) on {CARD}")
+        log(f"  {name}: [{rows}, {BLOCK}] f32 kernel {ms:.4f} ms (device "
+            f"{dev_ms} ms), plain {plain_ms:.4f} ms{lib}, {nbytes} bytes, "
+            f"bound {bytes_ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s) on {CARD}")
+    # the grouped #1 against #1 on each leaf padded beforehand, at the 161
+    # leaves of a ResNet-50 step
+    padded = [torch.nn.functional.pad(t.reshape(-1), (0, -t.numel() % BLOCK))
+              .reshape(-1, BLOCK) for t in leaves]
+    grouped = {
+        "leaves": len(leaves), "launches": grouped_launches,
+        "ms": cuda_ms(lambda: ck.int8_quantize_2d_many(leaves, BLOCK), 30),
+        "device_ms": device_ms(lambda: ck.int8_quantize_2d_many(
+            leaves, BLOCK), 10, match["int8_quantize_2d"]),
+        "per_leaf_ms": cuda_ms(
+            lambda: [ck.int8_quantize_2d(t) for t in padded], 10),
+        "per_leaf_device_ms": device_ms(
+            lambda: [ck.int8_quantize_2d(t) for t in padded], 5,
+            match["int8_quantize_2d"]),
+    }
+    out["int8_quantize_2d"]["grouped"] = grouped
+    log(f"  int8_quantize_2d_many over the {len(leaves)} ResNet-50 leaves: "
+        f"{grouped['ms']:.4f} ms a call (device {grouped['device_ms']} ms); "
+        f"{len(leaves)} per-leaf calls {grouped['per_leaf_ms']:.4f} ms "
+        f"(device {grouped['per_leaf_device_ms']} ms) on {CARD}")
     return out
 
 
@@ -1124,18 +1221,22 @@ def phase_world1() -> dict:
             torch.cuda.empty_cache()
     counts = ck.launch_counts()
     leaves = res["gradient_leaves"]
+    # error feedback measures every leaf of a step in one grouped #1 (one
+    # launch per table-full of leaves) and one #2, on the card: at least one
+    # launch of each a step, and at most what the leaf tables need
+    per_step = -(-leaves // ck._kernel("hvd_int8_table_leaves")[1]())
+    ran = steps + warmup
     ok = (all(math.isfinite(v) for v in res["losses"])
           and res["device"].startswith("cuda")
           and hvd.device().type == "cuda"
-          and counts["int8_quantize_2d"] >= (steps + warmup) * leaves
-          and counts["int8_dequantize_2d"] >= (steps + warmup) * leaves
-          and (counts["int8_quantize_2d"] + counts["int8_dequantize_2d"]
-               >= 2 * steps * leaves))
+          and ran <= counts["int8_quantize_2d"] <= ran * per_step
+          and ran <= counts["int8_dequantize_2d"] <= ran * per_step)
     log(f"phase 2: ResNet-50 world 1 batch {batch} 224x224 int8+EF: "
         f"{res['images_per_sec']:.1f} images/s, peak memory "
         f"{res['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
         f"{[round(v, 4) for v in res['losses']]}, launches {counts}, "
-        f"{leaves} gradient leaves, on {CARD}: ok={ok}")
+        f"{leaves} gradient leaves ({per_step} #1 and #2 launches a step at "
+        f"most), on {CARD}: ok={ok}")
     if not ok:
         raise AssertionError("world-1 main path failed its checks")
     res.update(batch=batch, counts=counts)
@@ -1177,16 +1278,17 @@ def phase_breakdown(batch: int) -> dict:
     dev = _device_ms(prof)
     total = sum(dev.values())
     wire = {k: v for k, v in dev.items()
-            if "int8_quant_kernel" in k or "int8_dequant_kernel" in k}
+            if any(m in k for m in WIRE_Q + ("int8_dequant_kernel",))}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     res = {"plain_images_per_sec": plain["images_per_sec"],
            "profiled_steps": steps, "device_ms_total": total,
-           "wire_kernel_ms": sum(wire.values()), "top_kernels": top}
+           "wire_kernel_ms": sum(wire.values()), "wire_kernels": wire,
+           "top_kernels": top}
     share = (f"{100 * res['wire_kernel_ms'] / total:.2f}% of {total:.1f} ms "
              f"device time" if total else "profiler recorded no device time")
     log(f"phase 2c: world 1 without compression {plain['images_per_sec']:.1f}"
         f" images/s; 2 profiled int8+EF steps: wire kernels "
-        f"{res['wire_kernel_ms']:.2f} ms = {share}; on {CARD}")
+        f"{res['wire_kernel_ms']:.4f} ms = {share} ({wire}); on {CARD}")
     if not all(math.isfinite(v) for v in plain["losses"]):
         raise AssertionError("uncompressed world-1 run lost finiteness")
     return res

@@ -6,8 +6,8 @@ block-quantized modes (int8, int4) are *wire markers*: ``compress`` is the
 identity and the executor (`runtime/executor.py`) quantizes inside the
 allreduce, because per-rank scales do not commute with the sum. The numerics
 live here -- ``quantize_blocks`` / ``dequantize_blocks`` /
-``quantize_roundtrip`` -- so error feedback, the executor and the tests share
-one definition.
+``quantize_roundtrip`` and its many-leaf form ``quantize_roundtrip_many`` --
+so error feedback, the executor and the tests share one definition.
 
 Per block of ``HOROVOD_INT8_BLOCK`` (default 256) elements: ``scale =
 absmax / qmax`` (qmax 127 or 7), ``q = round_half_even(x / scale)``. Unlike
@@ -91,6 +91,32 @@ def quantize_roundtrip(x: torch.Tensor, block: int | None = None,
     return y[:n].reshape(x.shape)
 
 
+def quantize_roundtrip_many(tensors, block: int | None = None,
+                            bits: int = 8):
+    """:func:`quantize_roundtrip` of each tensor, bit for bit. For
+    ``bits=8`` every leaf goes through one grouped quantize (one launch per
+    dtype on the card, ``cuda_kernels.int8_quantize_2d_many``, which reads
+    each leaf where it lies and pads nothing) and one dequantize over all
+    their rows; each result is a view cut back to its leaf's shape and
+    dtype. ``bits=4`` keeps the per-leaf formula (no unpacked 4-bit kernel,
+    as in the reference)."""
+    block = block or block_size()
+    tensors = list(tensors)
+    if bits != 8:
+        return [quantize_roundtrip(t, block, bits=bits) for t in tensors]
+    q, s = ck.int8_quantize_2d_many(
+        [t.contiguous() if t.dtype in ck._FLOATS else t.float().contiguous()
+         for t in tensors], block)
+    y = ck.int8_dequantize_2d(q, s).reshape(-1)
+    out, start = [], 0
+    for t in tensors:
+        n = t.numel()
+        piece = y[start:start + n].view(t.shape)
+        out.append(piece if t.dtype == torch.float32 else piece.to(t.dtype))
+        start += -(-n // block) * block
+    return out
+
+
 def wire_footprint(num_elements: int, mode: str,
                    block: int | None = None) -> int:
     """Bytes a fused bucket of ``num_elements`` f32 elements moves over the
@@ -132,6 +158,12 @@ class Compressor:
         error feedback measures what the wire dropped with it)."""
         comp, ctx = cls.compress(tensor)
         return cls.decompress(comp, ctx)
+
+    @classmethod
+    def roundtrip_many(cls, tensors):
+        """:meth:`roundtrip` of each tensor (a compressor may take them all
+        in fewer kernel launches, with the same values)."""
+        return [cls.roundtrip(t) for t in tensors]
 
 
 class NoneCompressor(Compressor):
@@ -179,6 +211,17 @@ class _WireCompressor(NoneCompressor):
         if not torch.is_floating_point(tensor):
             return tensor
         return quantize_roundtrip(tensor, bits=cls.bits)
+
+    @classmethod
+    def roundtrip_many(cls, tensors):
+        """The float tensors through one :func:`quantize_roundtrip_many`
+        call; the others pass unchanged."""
+        out = list(tensors)
+        idx = [i for i, t in enumerate(out) if torch.is_floating_point(t)]
+        for i, y in zip(idx, quantize_roundtrip_many([out[i] for i in idx],
+                                                     bits=cls.bits)):
+            out[i] = y
+        return out
 
 
 class Int8Compressor(_WireCompressor):

@@ -2,8 +2,9 @@
 
 Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
 
-* the wire section (int8 block quantize / dequantize, fused quantize + pack
-  for the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
+* the wire section (int8 block quantize, also over many leaves in one
+  launch, ``int8_quantize_2d_many``; dequantize; fused quantize + pack for
+  the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
 * the Adasum pairwise combine (``adasum_combine_pairs``), CUDA C++ in
   ``csrc/adasum.cu``;
 * flash attention, forward (``flash_attention_fwd``), the ring hop of
@@ -45,9 +46,11 @@ the AdamW kernel rounds every operation as its twin does.
 
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -61,6 +64,9 @@ _F = ctypes.c_float
 # C function -> (library of csrc/<library>.cu, argument types, result type)
 _SIGNATURES = {
     "hvd_int8_quantize": ("wire_quant", [_P, _I, _P, _P, _I64, _I, _P], _I),
+    "hvd_int8_quantize_many": ("wire_quant", [_P, _I, _I, _P, _P, _I, _P],
+                               _I),
+    "hvd_int8_table_leaves": ("wire_quant", [], _I),
     "hvd_int8_dequantize": ("wire_quant", [_P, _P, _P, _I64, _I, _P], _I),
     "hvd_int8_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
     "hvd_int4_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
@@ -181,6 +187,25 @@ def int8_quantize_2d_plain(x2):
     return quant_rows(x2, INT8_QMAX)
 
 
+def int8_quantize_2d_many_plain(tensors, block: int):
+    """Leaves of any shape -> ([R, block] int8, [R, 1] f32), R = the sum of
+    ``ceil(n_i / block)``: each leaf flattened, zero-padded to whole rows
+    and quantized by :func:`quant_rows`, its rows after the leaf before."""
+    qs, ss = [], []
+    for t in tensors:
+        flat = t.reshape(-1)
+        pad = (-flat.numel()) % block
+        if pad:
+            flat = F.pad(flat, (0, pad))
+        q, s = quant_rows(flat.reshape(-1, block), INT8_QMAX)
+        qs.append(q)
+        ss.append(s)
+    if not qs:
+        return (torch.empty((0, block), dtype=torch.int8),
+                torch.empty((0, 1), dtype=torch.float32))
+    return torch.cat(qs), torch.cat(ss)
+
+
 def int8_dequantize_2d_plain(q2, s2):
     """([rows, B] int8, [rows, 1] f32) -> [rows, B] f32."""
     return q2.float() * s2
@@ -233,6 +258,59 @@ def int8_quantize_2d(x2):
                 _FLOATS[x2.dtype], q.data_ptr(), s.data_ptr(), rows, block)
         int8_quantize_2d.launches += 1
     return q, s
+
+
+def int8_quantize_2d_many(tensors, block: int):
+    """Leaves of any shape, f32/bf16/f16, each contiguous, all on one
+    device -> ([R, block] int8, [R, 1] f32 scales), R = the sum of
+    ``ceil(n_i / block)``. Leaf i's rows follow leaf i - 1's; elements past
+    its end quantize as zeros (the padding of ``quantize_roundtrip``), and
+    no padded copy is made. On the card one launch takes every leaf of a
+    dtype, up to ``hvd_int8_table_leaves()`` leaves (one launch per table
+    of that many); each launch counts in ``int8_quantize_2d.launches``."""
+    tensors = list(tensors)
+    _check_block(block, "int8_quantize_2d_many")
+    dev = tensors[0].device if tensors else torch.device("cpu")
+    for i, t in enumerate(tensors):
+        # the common case in one test (a launch's host time is its cost)
+        if not (isinstance(t, torch.Tensor) and t.dtype in _FLOATS
+                and t.is_contiguous() and t.device == dev):
+            _reject_leaf(i, t, dev)
+    if dev.type == "cpu":
+        return int8_quantize_2d_many_plain(tensors, block)
+    if dev.type != "cuda":
+        raise ValueError(f"int8_quantize_2d_many: unsupported device {dev}")
+    groups, rows = {}, 0  # dtype -> (pointer, elements, first row) rows
+    for t in tensors:
+        n = t.numel()
+        if n:
+            groups.setdefault(t.dtype, array.array("q")).extend(
+                (t.data_ptr(), n, rows))
+        rows += -(-n // block)
+    q = torch.empty((rows, block), dtype=torch.int8, device=dev)
+    s = torch.empty((rows, 1), dtype=torch.float32, device=dev)
+    if groups:
+        per_table = 3 * _kernel("hvd_int8_table_leaves")[1]()
+        for dtype, table in groups.items():
+            for k in range(0, len(table), per_table):
+                part = table[k:k + per_table]
+                _launch("hvd_int8_quantize_many", dev.index,
+                        part.buffer_info()[0], len(part) // 3,
+                        _FLOATS[dtype], q.data_ptr(), s.data_ptr(), block)
+                int8_quantize_2d.launches += 1
+    return q, s
+
+
+def _reject_leaf(i: int, t, dev) -> None:
+    what = f"int8_quantize_2d_many leaf {i}"
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{what}: expected a tensor, got {type(t)}")
+    if t.dtype not in _FLOATS:
+        raise TypeError(f"{what}: dtype {t.dtype} not in "
+                        f"{sorted(str(d) for d in _FLOATS)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    raise ValueError(f"{what}: on {t.device}, leaf 0 on {dev}")
 
 
 def int8_dequantize_2d(q2, s2):

@@ -55,19 +55,26 @@ class _DistributedOptimizer:
         self._named = _named(optimizer, named_parameters)
         self._should_sync = True
 
-    def _apply_error_feedback(self, name: str, grad: torch.Tensor):
-        """corrected = grad + residual; the new residual is the part of
-        ``corrected`` the lossy wire drops this step."""
-        res = self._ef_residual.get(name)
-        corrected = grad if res is None else grad + res
-        self._ef_residual[name] = corrected - self._compression.roundtrip(
-            corrected)
+    def _apply_error_feedback(self, names, grads) -> List[torch.Tensor]:
+        """corrected = grad + residual for each named gradient; the new
+        residual is the part of ``corrected`` the lossy wire drops this
+        step, measured for every leaf in one ``roundtrip_many`` call."""
+        corrected = []
+        for name, g in zip(names, grads):
+            res = self._ef_residual.get(name)
+            corrected.append(g if res is None else g + res)
+        sent = self._compression.roundtrip_many(corrected)
+        for name, c, y in zip(names, corrected, sent):
+            self._ef_residual[name] = c - y
         return corrected
 
     def synchronize(self) -> None:
         """Error feedback (if on), then the allreduce of every gradient,
         written back into ``.grad``. At world size 1 the allreduce is
-        skipped, as in the reference; error feedback still runs.
+        skipped, as in the reference; error feedback still runs. Error
+        feedback corrects every gradient first, then measures what the
+        wire drops from all of them in one ``roundtrip_many`` call (one
+        grouped quantize and one dequantize on the int8 wire).
 
         Above world size 1 every parameter that requires a gradient takes
         part, in ``named_parameters`` order, with zeros where its ``.grad``
@@ -77,22 +84,26 @@ class _DistributedOptimizer:
         stay equal. The ranks' tensors are checked against each other in
         one gather first."""
         if basics.size() == 1:
-            with torch.no_grad():
-                for name, p in self._named:
-                    if p.grad is not None and self._error_feedback:
-                        p.grad.copy_(self._apply_error_feedback(name, p.grad))
+            if self._error_feedback:
+                with torch.no_grad():
+                    named = [(n, p) for n, p in self._named
+                             if p.grad is not None]
+                    corrected = self._apply_error_feedback(
+                        [n for n, _ in named], [p.grad for _, p in named])
+                    for (_, p), c in zip(named, corrected):
+                        p.grad.copy_(c)
             return
         comp = self._compression
         wire = comp.wire
         with torch.no_grad():
-            todo = []
-            for name, p in self._named:
-                if not p.requires_grad:
-                    continue
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                if self._error_feedback:
-                    g = self._apply_error_feedback(name, g)
-                todo.append((name, p, *comp.compress(g)))
+            named = [(n, p) for n, p in self._named if p.requires_grad]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for _, p in named]
+            if self._error_feedback:
+                grads = self._apply_error_feedback([n for n, _ in named],
+                                                   grads)
+            todo = [(name, p, *comp.compress(g))
+                    for (name, p), g in zip(named, grads)]
             ops.check_signatures([
                 ops.signature("allreduce", c, f"grad.{name}", self._op,
                               wire=wire) for name, _, c, _ in todo])

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels of two checkouts of the port on one card: K5-K8, K10.
+"""Time kernels of two checkouts of the port on one card: the int8 / int4
+wire kernels (#1-#4), K5-K8, K10.
 
     python3 kernel_ab.py --parent DIR [--report PATH]
 
@@ -9,6 +10,22 @@ lists). Each side runs in a process of its own, which imports
 ``horovod_tpu_torch`` from its checkout and builds that checkout's kernels,
 in the order parent, this checkout, this checkout, parent, so that drift
 on the card shows. Every side times:
+
+* at the flat ResNet-50 gradient as ``[99851, 256]`` f32 rows
+  (``chip_smoke.gradient_like``): ``wire_q``, ``int8_quantize_2d`` (#1);
+  ``wire_dq``, ``int8_dequantize_2d`` (#2); ``wire_pack``,
+  ``int8_quantize_pack_2d`` (#3); ``wire_pack4``,
+  ``int4_quantize_pack_2d`` (#4, whose code neither side changed: the
+  control); ``wire_q_<rows>`` / ``wire_pack_<rows>``, #1 and #3 at 64,
+  9216 and 30000 seeded normal rows of 256 (per-tensor sizes), and
+  ``wire_q_zeros_9216``, #1 on 9216 rows of zeros;
+* at ResNet-50's 161 gradient leaves (seeded normal values in each
+  parameter's shape): ``leaves_per_leaf``, ``int8_quantize_2d`` on each
+  leaf padded to whole rows beforehand (161 launches); ``leaves_grouped``,
+  ``int8_quantize_2d_many`` on the leaves as they are (where the side has
+  it); ``roundtrip_per_leaf``, ``quantize_roundtrip`` on each leaf (what
+  error feedback ran per leaf: pad, #1, #2); ``roundtrip_many``,
+  ``quantize_roundtrip_many`` (where the side has it);
 
 * at the LM's attention shape (q, k, v the strided views of a ``[8, 1024,
   16, 3, 64]`` bf16 qkv tensor, causal): ``fwd``, ``flash_attention_fwd``
@@ -39,7 +56,12 @@ on the card shows. Every side times:
 
 Each is the median of per-call CUDA-event times (ms), and for the kernels
 also the device time a call from ``torch.profiler`` (kernels whose name
-holds ``flash``, ``hvd_mm`` or ``ln_fwd``), both timed by ``chip_smoke.py``'s
+holds ``flash``, ``hvd_mm`` or ``ln_fwd``; for the wire, each call runs
+one kernel: ``int8_quant_tiles`` (the register path of #1 and #3) or a
+general loop's ``int8_quant_rows`` / ``int8_quant_pack`` for #1 and #3,
+the parent's ``int8_quant_kernel`` for #1, ``int8_dequant`` for #2 and
+``int4_quant_pack`` for #4), both
+timed by ``chip_smoke.py``'s
 ``cuda_ms`` and ``device_ms``; ``step_<hop>`` updates its own copy of the
 carry in place, call after call, as phase 6 times it. Then the host side
 of K8: ``host_us``, microseconds a call over 1000 back-to-back calls on
@@ -142,6 +164,52 @@ def hop_calls(torch, F, ck, hop, q, k, v, do, lse, dd, kw, carry) -> dict:
     return calls
 
 
+def wire_calls(torch, ck, comp) -> dict:
+    """The wire kernels' calls (see the module's docstring)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import (WIRE_Q, gradient_like, resnet50_gradient_rows,
+                            resnet50_leaves)
+
+    q1 = WIRE_Q + ("int8_quant_kernel",)  # and the parent's #1
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = gradient_like(resnet50_gradient_rows(), 256, gen)
+    q, s = ck.int8_quantize_2d_plain(x)
+    leaves = resnet50_leaves(gen)
+    padded = [F.pad(t.reshape(-1), (0, -t.numel() % 256)).reshape(-1, 256)
+              for t in leaves]
+    calls = {
+        "wire_q": (lambda: ck.int8_quantize_2d(x), q1),
+        "wire_dq": (lambda: ck.int8_dequantize_2d(q, s), ("int8_dequant",)),
+        "wire_pack": (lambda: ck.int8_quantize_pack_2d(x),
+                      ("int8_quant_tiles", "int8_quant_pack")),
+        "wire_pack4": (lambda: ck.int4_quantize_pack_2d(x),
+                       ("int4_quant_pack",)),
+        "leaves_per_leaf": (lambda: [ck.int8_quantize_2d(t) for t in padded],
+                            q1),
+        "roundtrip_per_leaf": (
+            lambda: [comp.quantize_roundtrip(t) for t in leaves],
+            q1 + ("int8_dequant",)),
+    }
+    # smaller calls, as the executor's per-tensor wire makes them, and
+    # zeros (the IEEE division's slow path for a zero numerator)
+    for rows in (64, 9216, 30000):
+        xs = torch.randn(rows, 256, generator=gen, device="cuda")
+        calls[f"wire_q_{rows}"] = (lambda xs=xs: ck.int8_quantize_2d(xs), q1)
+        calls[f"wire_pack_{rows}"] = (
+            lambda xs=xs: ck.int8_quantize_pack_2d(xs),
+            ("int8_quant_tiles", "int8_quant_pack"))
+    zeros = torch.zeros(9216, 256, device="cuda")
+    calls["wire_q_zeros_9216"] = (lambda: ck.int8_quantize_2d(zeros), q1)
+    if hasattr(ck, "int8_quantize_2d_many"):
+        calls["leaves_grouped"] = (
+            lambda: ck.int8_quantize_2d_many(leaves, 256), q1)
+        calls["roundtrip_many"] = (
+            lambda: comp.quantize_roundtrip_many(leaves),
+            q1 + ("int8_dequant",))
+    return calls
+
+
 def worker(root: str) -> dict:
     """One side: this process imports the port from ``root`` and the
     timers from this checkout's ``chip_smoke.py``."""
@@ -152,6 +220,7 @@ def worker(root: str) -> dict:
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention
+    from horovod_tpu_torch.ops import compression as comp
     from horovod_tpu_torch.ops import cuda_kernels as ck
     from horovod_tpu_torch.ops.layer_norm import fused_layer_norm
 
@@ -169,7 +238,9 @@ def worker(root: str) -> dict:
     qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     sd = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    calls = {  # name: (call, kernel-name match for the device time)
+    # name: (call, kernel-name match for the device time)
+    calls = wire_calls(torch, ck, comp)
+    calls.update({
         "fwd": (lambda: ck.flash_attention_fwd(q, k, v, causal=True),
                 "flash"),
         "bwd": (lambda: ck.flash_attention_bwd(q, k, v, do, lse, dd,
@@ -183,7 +254,7 @@ def worker(root: str) -> dict:
             qs, ks, vs, is_causal=True), None),
         "sdpa_bwd": (lambda: torch.autograd.grad(
             sd, (qs, ks, vs), do.transpose(1, 2), retain_graph=True), None),
-    }
+    })
     hops, carry = ring_hop_inputs(
         ck, torch.Generator(device="cuda").manual_seed(6), 1,
         RING["seq"] // RING["sp"], 16, 64, torch.bfloat16)
@@ -215,7 +286,8 @@ def worker(root: str) -> dict:
     for name, (fn, match) in calls.items():
         res[f"{name}_ms"] = cuda_ms(fn, 30, 5)
         if match is not None:
-            res[f"{name}_device_ms"] = device_ms(fn, 10, (match,))
+            res[f"{name}_device_ms"] = device_ms(
+                fn, 10, match if isinstance(match, tuple) else (match,))
     res.update(layer_norm_host(torch, ck, fused_layer_norm))
     return res
 

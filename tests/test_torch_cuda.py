@@ -1,8 +1,9 @@
-"""The LM kernels against their plain twins on the card (K5, K7: flash
+"""The kernels against their plain twins on the card (K5, K7: flash
 attention; K8: LayerNorm; K9: AdamW; K6: the ring hop; K10: the matmul of
-the fused matmul + reduce-scatter), at small shapes and at the shapes
-where their paths part, with the tolerances of ``chip_smoke.py`` phases 5,
-6 and 7.
+the fused matmul + reduce-scatter; the int8 wire quantizers #1, its
+many-leaf launch, and #3), at small shapes and at the shapes where their
+paths part, with the tolerances of ``chip_smoke.py`` phases 1, 5, 6 and 7
+(the quantizers bit for bit).
 
 Every test needs a CUDA device and skips without one. The module imports
 neither jax nor the reference, so that it runs where only PyTorch is
@@ -544,3 +545,150 @@ def test_layer_norm_paths_match_twin(dtype, shape):
     assert ((yd - ytd).abs() <= bound).all()
     assert ((mean - mean_t).abs() <= 2e-6 * x.float().abs().amax(1)).all()
     assert ((rstd - rstd_t).abs() <= 4e-6 * rstd_t).all()
+
+
+def _wire_rows(gen, rows, block, dtype):
+    """Rows with magnitudes spread over six decades, an all-zero row and a
+    row of exact .5 ties (its absmax 127 makes the scale 1)."""
+    x = torch.randn(rows, block, generator=gen, device="cuda") * torch.pow(
+        10.0, torch.rand(rows, 1, generator=gen, device="cuda") * 6 - 4)
+    x[0] = 0
+    if rows > 1:
+        x[1] = 0
+        x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                 -127.0])
+    return x.to(dtype)
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    # the register path at 1056 tiles or more (132 SMs x 8 blocks)
+    (torch.float32, (33792, 256)),   # whole tiles of 32 rows only
+    (torch.float32, (33793, 256)),   # a ragged last tile of 1 row
+    (torch.float32, (33795, 256)),   # rows not a multiple of 4 (or a tile)
+    (torch.bfloat16, (67600, 128)),  # 8 lanes a row, tiles of 64
+    (torch.float16, (16900, 512)),   # a warp a row, tiles of 16
+    (torch.float32, (1000, 256)),    # too few tiles: the general loop
+    (torch.float32, (50, 100)),      # ragged B: the general loop, scalar
+    (torch.bfloat16, (40, 1024)),    # the general loop, 16-byte loads
+])
+def test_int8_quantizers_match_twin_bit_for_bit(dtype, shape):
+    """#1 (q and scales) and #3 (packed rows, scale bytes included) equal
+    their twins byte for byte on the register path (taken when the tiles,
+    32 rows of 256, 64 of 128 or 16 of 512, fill every block that fits on
+    the card), at ragged row counts and on the general loop; one launch
+    each."""
+    x = _wire_rows(_gen(), *shape, dtype)
+    q, s = ck.int8_quantize_2d(x)
+    p = ck.int8_quantize_pack_2d(x)
+    qt, st = ck.int8_quantize_2d_plain(x)
+    torch.cuda.synchronize()
+    assert _same_bits(q, qt) and _same_bits(s, st)
+    assert _same_bits(p, ck.int8_quantize_pack_2d_plain(x))
+    counts = ck.launch_counts()
+    assert counts["int8_quantize_2d"] == counts["int8_quantize_pack_2d"] == 1
+
+
+def _edge_leaves(gen):
+    """Leaves of a step's kinds: a large one (so that the f32 leaves fill
+    the card with tiles at block 256 and take the register path), whole
+    blocks, a ragged tail, one short block, an all-zero leaf, a leaf with
+    a NaN, and between them a bf16 group (rows of the f32 launch that it
+    does not own) whose last leaf starts 4 bytes into its storage (so that
+    group takes the general loop)."""
+    def f32(n):
+        return torch.randn(n, generator=gen, device="cuda")
+
+    def bf16(n):
+        return f32(n).to(torch.bfloat16)
+
+    nan = f32(600)
+    nan[517] = float("nan")
+    return [f32(256 * 34000), f32(256 * 9), bf16(513), f32(1000), f32(7),
+            bf16(256), f32(64 * 3 * 3), torch.zeros(300, device="cuda"), nan,
+            bf16(1026)[2:]]
+
+
+@pytest.mark.parametrize("block", [256, 100])
+def test_int8_quantize_many_matches_twin_and_per_leaf(block):
+    """The grouped #1 over leaves of two dtypes: every scale bit for bit
+    against the twin and every q byte of the rows without a NaN (the twin's
+    int8 of NaN is undefined); every byte against #1 on each leaf padded
+    by hand; one launch per dtype."""
+    import torch.nn.functional as F
+
+    leaves = _edge_leaves(_gen())
+    q, s = ck.int8_quantize_2d_many(leaves, block)
+    assert ck.launch_counts()["int8_quantize_2d"] == 2
+    qt, st = ck.int8_quantize_2d_many_plain(leaves, block)
+    torch.cuda.synchronize()
+    assert _same_bits(s, st)
+    keep = ~torch.isnan(st[:, 0])
+    assert not keep.all() and torch.equal(q[keep], qt[keep])
+    row = 0
+    for t in leaves:
+        n = t.numel()
+        rows = -(-n // block)
+        qi, si = ck.int8_quantize_2d(
+            F.pad(t, (0, rows * block - n)).reshape(rows, block))
+        assert _same_bits(q[row:row + rows], qi)
+        assert _same_bits(s[row:row + rows], si)
+        row += rows
+    assert row == q.shape[0]
+
+
+def test_int8_quantize_many_takes_a_launch_per_table():
+    """More leaves than one table holds take one launch per table-full,
+    and equal the twin. Each table holds enough rows for the register
+    path, and the later ones start at rows that are not a multiple of 4
+    (their scale columns are not 16-byte aligned)."""
+    per_table = ck._kernel("hvd_int8_table_leaves")[1]()
+    gen = _gen()
+    leaves = [torch.randn(256 * 201 + 1 + (37 * i) % 700, generator=gen,
+                          device="cuda")
+              for i in range(2 * per_table + 5)]
+    q, s = ck.int8_quantize_2d_many(leaves, 256)
+    qt, st = ck.int8_quantize_2d_many_plain(leaves, 256)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["int8_quantize_2d"] == 3
+    assert _same_bits(q, qt) and _same_bits(s, st)
+
+
+def test_int8_quantizers_launch_from_a_fresh_thread():
+    """#1, the grouped #1 and #3 launched from a thread that has made no
+    CUDA runtime call give the main thread's bytes."""
+    import threading
+
+    gen = _gen()
+    x = _wire_rows(gen, 33795, 256, torch.float32)
+    leaves = _edge_leaves(gen)
+
+    def calls():
+        return (*ck.int8_quantize_2d(x), ck.int8_quantize_pack_2d(x),
+                *ck.int8_quantize_2d_many(leaves, 256))
+
+    want = calls()
+    spare = calls()  # freed blocks of every size the thread asks for
+    torch.cuda.synchronize()
+    del spare
+    got = {}
+
+    def run():
+        try:
+            got["out"] = calls()
+        except Exception as e:  # reported by the main thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    for g, w in zip(got["out"], want):
+        assert _same_bits(g, w)

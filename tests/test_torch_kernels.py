@@ -221,6 +221,102 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
             ck.int8_dequantize_2d(q, s[:4])
 
 
+# leaf lengths of a step's kinds: whole blocks (rows that tile for the
+# Pallas kernel at block 256), a ragged tail, one short block, 8 rows + 3
+LEAF_SIZES = (256 * 8, 1000, 7, 256 * 16 + 3)
+
+
+def _leaves(seed: int):
+    """f32 numpy leaves, magnitudes spread over four decades."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(n) * 10.0 ** rng.uniform(-3, 1)).astype(np.float32)
+            for n in LEAF_SIZES]
+
+
+@pytest.mark.parametrize("case", ["f32-256", "bf16-256", "f32-100"])
+def test_int8_quantize_many_twin_matches_reference_per_leaf(case):
+    """The many-leaf quantize's twin, leaf by leaf, against the reference:
+    its dequantized rows cut to the leaf equal ``quantize_roundtrip`` (the
+    Pallas kernels in interpret mode where the padded leaf tiles) bit for
+    bit in f32, and its q and scales equal ``int8_quantize_2d``'s where
+    the padded leaf tiles for it."""
+    from horovod_tpu.ops import compression as ref_comp
+
+    dtype, block = case.split("-")
+    block = int(block)
+    leaves = _leaves(block)
+    if dtype == "bf16":  # values exact in bf16, so f32 references agree
+        leaves = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+                  for x in leaves]
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, s = ck.int8_quantize_2d_many(
+        [torch.from_numpy(x).to(tdt) for x in leaves], block)
+    assert q.shape == (sum(-(-x.size // block) for x in leaves), block)
+    row = 0
+    for x in leaves:
+        n, rows = x.size, -(-x.size // block)
+        qi, si = q[row:row + rows], s[row:row + rows]
+        got = (qi.float() * si).reshape(-1)[:n].numpy()
+        want = np.asarray(ref_comp.quantize_roundtrip(jnp.asarray(x),
+                                                      block=block))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.astype(np.float32).view(np.int32))
+        if pk.int8_supported(rows, block):
+            padded = np.zeros(rows * block, np.float32)
+            padded[:n] = x
+            qk, sk = pk.int8_quantize_2d(jnp.asarray(padded.reshape(rows,
+                                                                    block)))
+            np.testing.assert_array_equal(qi.numpy(), _np(qk))
+            np.testing.assert_array_equal(si.numpy().view(np.int32),
+                                          _np(sk).view(np.int32))
+        row += rows
+    assert ck.launch_counts()["int8_quantize_2d"] == 0
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_roundtrip_many_equals_per_leaf(bits):
+    """``quantize_roundtrip_many`` equals ``quantize_roundtrip`` leaf by
+    leaf, bit for bit, in each leaf's shape and dtype: f32 leaves of a
+    step's kinds, a 2-D one, a transposed view, bf16, f16 and f64 leaves,
+    an all-zero and an empty one; ``Compression.int8/int4.roundtrip_many``
+    does too and passes an integer tensor through."""
+    from horovod_tpu_torch.ops import compression as comp
+
+    leaves = [torch.from_numpy(x) for x in _leaves(bits)]
+    rng = np.random.RandomState(bits + 1)
+    leaves += [torch.from_numpy(rng.randn(37, 11).astype(np.float32)),
+               torch.from_numpy(rng.randn(9, 40).astype(np.float32)).t(),
+               torch.from_numpy(rng.randn(700).astype(np.float32)).to(
+                   torch.bfloat16),
+               torch.from_numpy(rng.randn(300).astype(np.float32)).half(),
+               torch.from_numpy(rng.randn(5, 5)),
+               torch.zeros(300), torch.zeros(0)]
+    got = comp.quantize_roundtrip_many(leaves, bits=bits)
+    compressor = comp.Compression.int8 if bits == 8 else comp.Compression.int4
+    via = compressor.roundtrip_many(leaves + [torch.arange(5)])
+    assert torch.equal(via[-1], torch.arange(5))
+    for t, g, v in zip(leaves, got, via):
+        want = comp.quantize_roundtrip(t, bits=bits)
+        for y in (g, v):
+            assert y.dtype == t.dtype and y.shape == t.shape
+            assert torch.equal(y.reshape(-1).double(),
+                               want.reshape(-1).double())
+    assert ck.launch_counts()["int8_quantize_2d"] == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguity", "device", "block",
+                                 "not_a_tensor"])
+def test_int8_quantize_many_rejects_what_the_kernel_does_not_take(bad):
+    ok = torch.zeros(300)
+    args = {"dtype": ([ok, torch.zeros(3, dtype=torch.float64)], 256),
+            "contiguity": ([ok, torch.zeros(8, 4).t()], 256),
+            "device": ([ok, torch.zeros(3, device="meta")], 256),
+            "block": ([ok], 1),
+            "not_a_tensor": ([ok, np.zeros(3, np.float32)], 256)}[bad]
+    with pytest.raises(TypeError if bad == "dtype" else ValueError):
+        ck.int8_quantize_2d_many(*args)
+
+
 def test_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     """cuda_kernels and _build import with no nvcc (none is installed on
     the test platform); only building a kernel asks for it."""

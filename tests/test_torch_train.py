@@ -193,6 +193,90 @@ def test_error_feedback_residual_accounting():
                        corrected - comp.quantize_roundtrip(corrected))
 
 
+class _PerLeafInt8(comp.Int8Compressor):
+    """The int8 wire measured leaf by leaf (the compressors' default
+    ``roundtrip_many``): error feedback as it ran before the leaves were
+    grouped."""
+
+    roundtrip_many = comp.Compressor.__dict__["roundtrip_many"]
+
+
+class _PerLeafInt4(comp.Int4Compressor):
+    roundtrip_many = comp.Compressor.__dict__["roundtrip_many"]
+
+
+PER_LEAF = {"int8": (comp.Compression.int8, _PerLeafInt8),
+            "int4": (comp.Compression.int4, _PerLeafInt4)}
+
+
+def ef_paths_worker(mode: str, steps: int = 2) -> dict:
+    """Train the same seeded net through error feedback on the grouped
+    compressor and on its per-leaf form; per path, every residual and
+    parameter as numpy. The net has leaves of whole blocks, ragged ones
+    and one its loss leaves unused."""
+    out = {}
+    for path, compression in zip(("grouped", "per_leaf"), PER_LEAF[mode]):
+        torch.manual_seed(0)
+        net = torch.nn.ModuleDict({
+            "conv": torch.nn.Conv2d(3, 16, 3), "fc": torch.nn.Linear(16, 10),
+            "wide": torch.nn.Linear(16, 64), "unused": torch.nn.Linear(5, 3)})
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(net.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=net.named_parameters(),
+            compression=compression, error_feedback=True)
+        rng = np.random.RandomState(basics.rank())
+        x = torch.from_numpy(rng.randn(4, 3, 8, 8).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, 10, 4))
+        for _ in range(steps):
+            opt.zero_grad()
+            h = net["conv"](x).mean((2, 3))
+            loss = (F.cross_entropy(net["fc"](h), y)
+                    + net["wide"](h).square().mean())
+            loss.backward()
+            opt.step()
+        out[path] = {
+            "residuals": {k: v.numpy() for k, v in opt._ef_residual.items()},
+            "params": {k: v.detach().numpy()
+                       for k, v in net.named_parameters()}}
+    return out
+
+
+def _assert_paths_equal(res: dict) -> None:
+    g, p = res["grouped"], res["per_leaf"]
+    for part in ("residuals", "params"):
+        assert sorted(g[part]) == sorted(p[part])
+        for k in g[part]:
+            np.testing.assert_array_equal(g[part][k].view(np.int32),
+                                          p[part][k].view(np.int32),
+                                          err_msg=f"{part} {k}")
+    assert any(np.abs(r).max() > 0 for r in g["residuals"].values())
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_error_feedback_grouped_equals_per_leaf_world1(mode):
+    """At world size 1 error feedback through ``roundtrip_many`` (int8: one
+    grouped quantize and one dequantize a step) leaves every residual and
+    parameter bit-identical to the per-leaf roundtrip."""
+    hvd.init(device="cpu")
+    res = ef_paths_worker(mode, steps=3)
+    _assert_paths_equal(res)
+    assert "unused.weight" not in res["grouped"]["residuals"]
+
+
+def test_error_feedback_grouped_equals_per_leaf_two_ranks():
+    """On 2 gloo ranks (the quantized int8 wire) the grouped and the
+    per-leaf error feedback leave the same residuals and parameters, bit
+    for bit, on each rank; the ranks' parameters agree; the unused leaf
+    takes part with a zero gradient."""
+    res = testing.run_cluster(ef_paths_worker, np=2, device="cpu",
+                              args=("int8",), timeout=300)
+    for r in res:
+        _assert_paths_equal(r)
+        assert "unused.weight" in r["grouped"]["residuals"]
+    for k, v in res[0]["grouped"]["params"].items():
+        np.testing.assert_array_equal(v, res[1]["grouped"]["params"][k])
+
+
 def test_init_without_a_card_raises_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(hvd.HorovodError, match="device='cpu'"):
