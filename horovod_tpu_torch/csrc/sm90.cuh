@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels of
 // flash_attention_sm90.cu (K5, K7) and matmul.cu (K10), and by the
-// persistent grids of layer_norm.cu (K8).
+// persistent grid of adasum.cu (K4).
 //
-// Device side: mbarriers, TMA loads and stores (cp.async.bulk.tensor),
+// Device side: mbarriers, TMA loads and stores (cp.async.bulk.tensor, and
+// the 1-D cp.async.bulk load),
 // wgmma operand descriptors for 128B-swizzled tiles, the wgmma fence /
 // commit / wait, register ties, and the 1024-byte alignment of dynamic
 // shared memory. Host side: cuTensorMapEncodeTiled found through the
@@ -93,6 +94,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Bulk copy (the TMA's 1-D form) of `bytes` from global src to dst; both
+// 16-byte aligned, bytes a multiple of 16. They count toward bar's
+// transaction.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

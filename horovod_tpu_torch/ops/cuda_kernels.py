@@ -5,7 +5,8 @@ Counterparts of ``horovod_tpu/ops/pallas_kernels.py``:
 * the wire section (int8 block quantize, also over many leaves in one
   launch, ``int8_quantize_2d_many``; dequantize; fused quantize + pack for
   the int8 and int4 wires), CUDA C++ in ``csrc/wire_quant.cu``;
-* the Adasum pairwise combine (``adasum_combine_pairs``), CUDA C++ in
+* the Adasum pairwise combine (``adasum_combine_pairs``, also over many
+  pair sets in one launch, ``adasum_combine_pairs_many``), CUDA C++ in
   ``csrc/adasum.cu``;
 * flash attention, forward (``flash_attention_fwd``), the ring hop of
   sequence parallelism (``flash_attention_step``) and backward
@@ -71,8 +72,10 @@ _SIGNATURES = {
     "hvd_int8_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
     "hvd_int4_quantize_pack": ("wire_quant", [_P, _I, _P, _I64, _I, _P], _I),
     "hvd_adasum_combine": ("adasum", [_P, _I64, _P, _I64, _I, _P, _I64, _I64,
-                                      _P, _P], _I),
-    "hvd_adasum_scratch_floats": ("adasum", [_I64, _I64, _I], _I64),
+                                      _P, _I64, _P], _I),
+    "hvd_adasum_combine_many": ("adasum", [_P, _I, _I, _P, _I64, _P], _I),
+    "hvd_adasum_table_entries": ("adasum", [], _I),
+    "hvd_adasum_pair_bytes": ("adasum", [], _I64),
     # the last argument of each launcher is the stream
     "hvd_flash_fwd": ("flash_attention", [_P, _P] + [_I] * 9
                       + [_F, _P, _P, _P], _I),
@@ -242,6 +245,12 @@ def adasum_combine_pairs_plain(a, b):
     return (ac * af + bc * bf).to(a.dtype)
 
 
+def adasum_combine_pairs_many_plain(pairs):
+    """Pair sets ``(a_i, b_i)`` -> ``[adasum_combine_pairs_plain(a_i,
+    b_i)]``, set by set."""
+    return [adasum_combine_pairs_plain(a, b) for a, b in pairs]
+
+
 # -------------------------------------------------------------- wrappers
 def int8_quantize_2d(x2):
     """[rows, B] f32/bf16/f16 -> ([rows, B] int8, [rows, 1] f32 scales).
@@ -367,34 +376,146 @@ def int4_quantize_pack_2d(x2):
     return p
 
 
+def _adasum_pair_ok(a, b, dev) -> bool:
+    """The common case of a pair set the kernel takes, in few attribute
+    reads (a launch's host time is its cost); :func:`_reject_pair` names
+    anything else."""
+    try:
+        return (a.dim() == 2 and a.dtype in _FLOATS and a.shape == b.shape
+                and a.dtype == b.dtype and a.device == dev
+                and b.device == dev
+                and (a.shape[1] < 2 or a.stride(1) == b.stride(1) == 1))
+    except AttributeError:
+        return False
+
+
+def _reject_pair(what: str, a, b, dev) -> None:
+    _check_2d(a, f"{what} a", _FLOATS, strided_rows=True)
+    _check_2d(b, f"{what} b", _FLOATS, strided_rows=True)
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"{what}: a {tuple(a.shape)} {a.dtype} on "
+                         f"{a.device} does not match b {tuple(b.shape)} "
+                         f"{b.dtype} on {b.device}")
+    raise ValueError(f"{what}: on {a.device}, the first pair set on {dev}")
+
+
+_adasum_sizes: list = []    # [table entries, scratch bytes a pair]
+_adasum_scratch: dict = {}  # (card, stream) -> zeroed pair slots (uint8)
+
+
+def _adasum_limits() -> list:
+    """[pair sets a launch's table holds, scratch bytes a pair], read from
+    the library once."""
+    if not _adasum_sizes:
+        _adasum_sizes.extend((_kernel("hvd_adasum_table_entries")[1](),
+                              _kernel("hvd_adasum_pair_bytes")[1]()))
+    return _adasum_sizes
+
+
+def _adasum_slots(index: int, pairs: int):
+    """(pointer, bytes) of zeroed pair slots for ``pairs`` pairs on card
+    ``index``'s current stream: one buffer a card and stream, kept zeroed
+    by the kernel, grown when a call needs more."""
+    need = pairs * _adasum_limits()[1]
+    key = (index, _stream(index))
+    buf = _adasum_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        grown = 2 * buf.numel() if buf is not None else 0
+        buf = torch.zeros(max(need, grown), dtype=torch.uint8,
+                          device=torch.device("cuda", index))
+        _adasum_scratch[key] = buf
+    return buf.data_ptr(), buf.numel()
+
+
 def adasum_combine_pairs(a, b):
     """[m, n] x 2 f32/bf16/f16 -> [m, n] in the input dtype: pair ``i``
     combines ``a[i]`` with ``b[i]``. Replaces
     ``pallas_kernels.adasum_combine_pairs``; unlike it, any ``n`` is taken
     (no lane alignment, so nothing is padded). Rows may be strided views
     (``buf[0::2]``, ``buf[1::2]`` of a tree level): only the elements of a
-    row must be contiguous. One launch per call, two CUDA kernels (reduce,
-    then apply)."""
-    _check_2d(a, "adasum_combine_pairs a", _FLOATS, strided_rows=True)
-    _check_2d(b, "adasum_combine_pairs b", _FLOATS, strided_rows=True)
-    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
-        raise ValueError(f"adasum_combine_pairs: a {tuple(a.shape)} "
-                         f"{a.dtype} on {a.device} does not match b "
-                         f"{tuple(b.shape)} {b.dtype} on {b.device}")
+    row must be contiguous. One launch a call: a one-entry table of
+    :func:`adasum_combine_pairs_many`'s kernel."""
+    dev = a.device if isinstance(a, torch.Tensor) else None
+    if not _adasum_pair_ok(a, b, dev):
+        _reject_pair("adasum_combine_pairs", a, b, dev)
     m, n = a.shape
-    if a.device.type == "cpu":
+    if dev.type == "cpu":
         return adasum_combine_pairs_plain(a, b)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if dev.type != "cuda":
+        raise ValueError(f"adasum_combine_pairs: unsupported device {dev}")
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if m and n:
-        dt = _FLOATS[a.dtype]
-        scratch = torch.empty(
-            (_kernel("hvd_adasum_scratch_floats")[1](m, n, dt),),
-            dtype=torch.float32, device=a.device)
-        _launch("hvd_adasum_combine", a.get_device(), a.data_ptr(),
-                a.stride(0), b.data_ptr(), b.stride(0), dt, out.data_ptr(), m,
-                n, scratch.data_ptr())
+        slots, size = _adasum_slots(dev.index, m)
+        _launch("hvd_adasum_combine", dev.index, a.data_ptr(), a.stride(0),
+                b.data_ptr(), b.stride(0), _FLOATS[a.dtype], out.data_ptr(),
+                m, n, slots, size)
         adasum_combine_pairs.launches += 1
     return out
+
+
+def adasum_tables(pairs, outs, per_table: int) -> list:
+    """The launch tables of :func:`adasum_combine_pairs_many`: per dtype,
+    in the order first met, a row ``(a, lda, b, ldb, out, m, n)`` (pointers
+    and strides as ints) for each non-empty pair set, cut into tables of at
+    most ``per_table`` rows. Returns ``[(dtype, table, pairs)]``, ``table``
+    an ``array('q')`` and ``pairs`` the sum of its ``m``."""
+    groups = {}
+    for (a, b), out in zip(pairs, outs):
+        m, n = a.shape
+        if m and n:
+            groups.setdefault(a.dtype, array.array("q")).extend(
+                (a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+                 out.data_ptr(), m, n))
+    tables = []
+    for dtype, rows in groups.items():
+        for k in range(0, len(rows), 7 * per_table):
+            table = rows[k:k + 7 * per_table]
+            tables.append((dtype, table, sum(table[5::7])))
+    return tables
+
+
+def _adasum_outputs(pairs, dev) -> list:
+    """Contiguous [m, n] outputs, one flat buffer a dtype; each starts on a
+    16-byte boundary (the kernel's vector stores)."""
+    places, sizes = [], {}
+    for a, _ in pairs:
+        at = sizes.get(a.dtype, 0)
+        places.append(at)
+        step = 16 // a.element_size()
+        sizes[a.dtype] = at + -(-a.numel() // step) * step
+    flats = {dt: torch.empty(max(size, 1), dtype=dt, device=dev)
+             for dt, size in sizes.items()}
+    return [flats[a.dtype].as_strided(tuple(a.shape), (a.shape[1], 1), at)
+            for (a, _), at in zip(pairs, places)]
+
+
+def adasum_combine_pairs_many(pairs):
+    """Pair sets ``(a_i, b_i)``, each as :func:`adasum_combine_pairs`
+    takes it (f32/bf16/f16, dtypes may differ between sets), all on one
+    device -> their combines, ``[m_i, n_i]`` in each set's dtype, with the
+    bits of :func:`adasum_combine_pairs` on each set (coefficients per
+    pair). On the card one launch takes every set of a dtype, up to
+    ``hvd_adasum_table_entries()`` sets (one launch per table of that
+    many); each launch counts in ``adasum_combine_pairs.launches``."""
+    pairs = list(pairs)
+    dev = pairs[0][0].device if pairs and isinstance(
+        pairs[0][0], torch.Tensor) else torch.device("cpu")
+    for i, (a, b) in enumerate(pairs):
+        if not _adasum_pair_ok(a, b, dev):
+            _reject_pair(f"adasum_combine_pairs_many pair set {i}", a, b, dev)
+    if dev.type == "cpu":
+        return adasum_combine_pairs_many_plain(pairs)
+    if dev.type != "cuda":
+        raise ValueError(f"adasum_combine_pairs_many: unsupported device "
+                         f"{dev}")
+    outs = _adasum_outputs(pairs, dev)
+    tables = adasum_tables(pairs, outs, _adasum_limits()[0])
+    for dtype, table, npairs in tables:
+        slots, size = _adasum_slots(dev.index, npairs)
+        _launch("hvd_adasum_combine_many", dev.index, table.buffer_info()[0],
+                len(table) // 7, _FLOATS[dtype], slots, size)
+        adasum_combine_pairs.launches += 1
+    return outs
 
 
 # ------------------------------------------------------ flash attention

@@ -146,7 +146,10 @@ class _DistributedAdasumOptimizer:
     The hooks compute only; every allreduce runs in ``step()``, in
     ``named_parameters`` order, so ranks whose backward fires hooks in
     another order, or whose loss leaves a parameter unused, still run the
-    same collectives in the same order.
+    same collectives in the same order. Each delta is gathered on its own
+    and combined with its own coefficients, and every tree level of all
+    the deltas is one ``Executor.adasum_many`` call (one kernel launch a
+    level and dtype on the card).
     """
 
     def __init__(self, optimizer, named_parameters=None,
@@ -211,9 +214,10 @@ class _DistributedAdasumOptimizer:
                                             Adasum)
                               for name, _, comp, _ in todo])
         with torch.no_grad():
-            for name, p, comp, ctx in todo:
-                combined = ops.allreduce_unchecked(comp, Adasum)
-                p.add_(self._compression.decompress(combined, ctx).to(p.dtype))
+            combined = basics._executor().adasum_many(
+                [comp for _, _, comp, _ in todo])
+            for (_, p, _, ctx), c in zip(todo, combined):
+                p.add_(self._compression.decompress(c, ctx).to(p.dtype))
         return loss
 
     def zero_grad(self, *args, **kwargs):

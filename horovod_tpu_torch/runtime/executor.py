@@ -15,7 +15,7 @@ reference.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -209,6 +209,13 @@ class Executor:
             out = out * _scalar(postscale, out)
         return out.to(tensor.dtype).reshape(tensor.shape)
 
+    def _adasum_world(self) -> int:
+        world = self._world
+        if world & (world - 1):
+            raise HorovodInternalError(
+                f"Adasum requires a power-of-2 number of ranks; got {world}.")
+        return world
+
     def adasum(self, tensor: torch.Tensor) -> torch.Tensor:
         """Adasum combine of ``tensor`` (f32, bf16 or f16) over all ranks,
         the reference's ``_adasum_fn``: all-gather the flat rows into
@@ -216,10 +223,7 @@ class Executor:
         ``adasum_combine_pairs`` launch per level, each level cast back to
         the input dtype. Every rank gets the root. The wire is the exact
         one (quantized wires are bypassed)."""
-        world = self._world
-        if world & (world - 1):
-            raise HorovodInternalError(
-                f"Adasum requires a power-of-2 number of ranks; got {world}.")
+        world = self._adasum_world()
         length = tensor.numel()
         self._record_wire("", length, tensor.dtype)
         if world == 1:
@@ -229,6 +233,26 @@ class Executor:
         while buf.shape[0] > 1:
             buf = ck.adasum_combine_pairs(buf[0::2], buf[1::2])
         return buf[0].reshape(tensor.shape)
+
+    def adasum_many(self, tensors: Sequence[torch.Tensor]) -> list:
+        """:meth:`adasum` of each of ``tensors``, with the same bits: each
+        tensor all-gathered on its own, in order, as :meth:`adasum` does;
+        then each tree level of every tensor in one
+        ``adasum_combine_pairs_many`` call (a launch per dtype on the card),
+        coefficients per tensor, each level cast back to its tensor's
+        dtype."""
+        tensors = list(tensors)
+        world = self._adasum_world()
+        for t in tensors:
+            self._record_wire("", t.numel(), t.dtype)
+        if world == 1:
+            return [t.clone() for t in tensors]
+        bufs = [_collective("all_gather", t.reshape(1, -1), self._backend,
+                            world) for t in tensors]
+        for _ in range(world.bit_length() - 1):
+            bufs = ck.adasum_combine_pairs_many(
+                [(buf[0::2], buf[1::2]) for buf in bufs])
+        return [buf[0].reshape(t.shape) for buf, t in zip(bufs, tensors)]
 
     def _quantized_sum(self, x: torch.Tensor, bits: int) -> torch.Tensor:
         """Quantized allreduce (sum) of the flat f32 ``x``: the reference's

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels of two checkouts of the port on one card: the int8 / int4
-wire kernels (#1-#4), K5-K8, K10.
+wire kernels (#1-#4), the Adasum combine K4, K5-K8, K10.
 
-    python3 kernel_ab.py --parent DIR [--report PATH]
+    python3 kernel_ab.py --parent DIR [--report PATH] [--only adasum]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory ``.gitignore``
@@ -45,6 +45,19 @@ on the card shows. Every side times:
   as the nearest library call but not the same contract (no carry, bf16
   gradients), ``sdpa_fwd_<hop>`` / ``sdpa_bwd_<hop>`` (``is_causal`` on
   the diagonal hop only);
+* K4 (``--only adasum`` times it alone): ``adasum_1`` / ``adasum_4``,
+  ``adasum_combine_pairs`` on ``[1 | 4, 2359296]`` f32 pairs
+  (``chip_smoke.adasum_pairs``); ``adasum_4_add``, ``torch.add(a, b,
+  out=)`` on the ``[4, 2359296]`` pair: not the same function, but the
+  same bytes moved (two reads, one write), a yardstick of the card's
+  rate; ``adasum_leaves_per_leaf``, one
+  single-pair call on each of ResNet-50's 161 leaves as a world-2 tree
+  level (``chip_smoke.adasum_level_pairs``); ``adasum_leaves_grouped``,
+  ``adasum_combine_pairs_many`` on the same levels (where the side has
+  it); under ``adasum``, the device ms of ``[1 | 4, 2359296]`` with L2
+  flushed before each call (``cold_device_ms``) and the host
+  microseconds a single-pair call at ``[1, 4096]`` and ``[1, 2359296]``
+  (``host_us``, as K8's below);
 * ``mm_lm_head`` / ``mm_mlp_out``: ``matmul_2d`` (K10) at the fused
   ring's two bf16 chunks, ``[2048, 256] @ [256, 32768]`` and ``[2048,
   1024] @ [1024, 1024]``, and ``torch.matmul`` on the same operands
@@ -56,12 +69,11 @@ on the card shows. Every side times:
 
 Each is the median of per-call CUDA-event times (ms), and for the kernels
 also the device time a call from ``torch.profiler`` (kernels whose name
-holds ``flash``, ``hvd_mm`` or ``ln_fwd``; for the wire, each call runs
-one kernel: ``int8_quant_tiles`` (the register path of #1 and #3) or a
-general loop's ``int8_quant_rows`` / ``int8_quant_pack`` for #1 and #3,
-the parent's ``int8_quant_kernel`` for #1, ``int8_dequant`` for #2 and
-``int4_quant_pack`` for #4), both
-timed by ``chip_smoke.py``'s
+holds ``flash``, ``hvd_mm``, ``ln_fwd`` or ``adasum_``; for the wire,
+each call runs one kernel: ``int8_quant_tiles`` (the register path of #1
+and #3) or a general loop's ``int8_quant_rows`` / ``int8_quant_pack`` for
+#1 and #3, the parent's ``int8_quant_kernel`` for #1, ``int8_dequant`` for
+#2 and ``int4_quant_pack`` for #4), both timed by ``chip_smoke.py``'s
 ``cuda_ms`` and ``device_ms``; ``step_<hop>`` updates its own copy of the
 carry in place, call after call, as phase 6 times it. Then the host side
 of K8: ``host_us``, microseconds a call over 1000 back-to-back calls on
@@ -210,9 +222,54 @@ def wire_calls(torch, ck, comp) -> dict:
     return calls
 
 
-def worker(root: str) -> dict:
+def adasum_calls(torch, ck) -> dict:
+    """K4's calls (see the module's docstring)."""
+    from chip_smoke import (ADASUM_N, adasum_level_pairs, adasum_pairs,
+                            resnet50_leaves)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    p1 = adasum_pairs(1, ADASUM_N, gen)
+    p4 = adasum_pairs(4, ADASUM_N, gen)
+    pairs = adasum_level_pairs(resnet50_leaves(gen), gen)
+    out4 = torch.empty_like(p4[0])
+    calls = {
+        "adasum_1": (lambda: ck.adasum_combine_pairs(*p1), "adasum_"),
+        "adasum_4": (lambda: ck.adasum_combine_pairs(*p4), "adasum_"),
+        "adasum_4_add": (lambda: torch.add(*p4, out=out4),
+                         "elementwise_kernel"),
+        "adasum_leaves_per_leaf": (
+            lambda: [ck.adasum_combine_pairs(a, b) for a, b in pairs],
+            "adasum_"),
+    }
+    if hasattr(ck, "adasum_combine_pairs_many"):
+        calls["adasum_leaves_grouped"] = (
+            lambda: ck.adasum_combine_pairs_many(pairs), "adasum_")
+    return calls
+
+
+def adasum_host(torch, ck) -> dict:
+    """K4's host side: device times with L2 flushed before each call, and
+    microseconds a single-pair call, host clock, at ``[1, 4096]`` (the
+    device idle most of the time) and ``[1, 2359296]``."""
+    from chip_smoke import ADASUM_N, adasum_device_ms, adasum_pairs
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {"host_us": {}, "cold_device_ms": {}}
+    for m, n in ((1, 4096), (1, ADASUM_N), (4, ADASUM_N)):
+        a, b = adasum_pairs(m, n, gen)
+        if m == 1:
+            out["host_us"][f"{m}x{n}"] = host_us(
+                torch, lambda: ck.adasum_combine_pairs(a, b))
+        if n == ADASUM_N:
+            out["cold_device_ms"][f"{m}x{n}"] = adasum_device_ms(
+                lambda: ck.adasum_combine_pairs(a, b), 20, cold=True)
+    return out
+
+
+def worker(root: str, only) -> dict:
     """One side: this process imports the port from ``root`` and the
-    timers from this checkout's ``chip_smoke.py``."""
+    timers from this checkout's ``chip_smoke.py``; ``only``: the groups
+    to time (all when empty)."""
     from chip_smoke import RING, cuda_ms, device_ms, ring_hop_inputs
 
     sys.path.insert(0, root)
@@ -225,6 +282,14 @@ def worker(root: str) -> dict:
     from horovod_tpu_torch.ops.layer_norm import fused_layer_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"root": root, "card": torch.cuda.get_device_name(0)}
+    if only == ["adasum"]:
+        calls = adasum_calls(torch, ck)
+        for name, (fn, match) in calls.items():
+            res[f"{name}_ms"] = cuda_ms(fn, 30, 5)
+            res[f"{name}_device_ms"] = device_ms(fn, 10, (match,))
+        res["adasum"] = adasum_host(torch, ck)
+        return res
     gen = torch.Generator(device="cuda").manual_seed(5)
     qkv = torch.randn(8, 1024, 16, 3, 64, generator=gen,
                       device="cuda").to(torch.bfloat16)
@@ -282,13 +347,14 @@ def worker(root: str) -> dict:
         lambda: fused_layer_norm(xg, gp, bp, eps=1e-6), "ln_fwd")
     calls["ln_library"] = (
         lambda: F.layer_norm(x, (1024,), g16, b16, 1e-6), None)
-    res = {"root": root, "card": torch.cuda.get_device_name(0)}
+    calls.update(adasum_calls(torch, ck))
     for name, (fn, match) in calls.items():
         res[f"{name}_ms"] = cuda_ms(fn, 30, 5)
         if match is not None:
             res[f"{name}_device_ms"] = device_ms(
                 fn, 10, match if isinstance(match, tuple) else (match,))
     res.update(layer_norm_host(torch, ck, fused_layer_norm))
+    res["adasum"] = adasum_host(torch, ck)
     return res
 
 
@@ -296,10 +362,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="the other checkout's directory")
     parser.add_argument("--report", help="also write the results here")
+    parser.add_argument("--only", choices=["adasum"], action="append",
+                        default=[], help="time K4 alone")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.only)), flush=True)
         return 0
     import torch
 
@@ -315,8 +383,9 @@ def main(argv=None) -> int:
     for label, root in (("parent", args.parent), ("change", HERE),
                         ("change", HERE), ("parent", args.parent)):
         run = subprocess.run([sys.executable, __file__, "--worker",
-                              os.path.abspath(root)], capture_output=True,
-                             text=True)
+                              os.path.abspath(root)]
+                             + [f"--only={g}" for g in args.only],
+                             capture_output=True, text=True)
         if run.returncode:
             print(run.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"the {label} side ({root}) failed")
@@ -330,7 +399,8 @@ def main(argv=None) -> int:
         for key in mine[0]:
             if key.endswith("_ms"):
                 summary[f"{label}_{key}"] = [s[key] for s in mine]
-        summary[f"{label}_host_us"] = [s["host_us"] for s in mine]
+        summary[f"{label}_host_us"] = [s.get("host_us") for s in mine]
+        summary[f"{label}_adasum"] = [s["adasum"] for s in mine]
     print(json.dumps(summary), flush=True)
     if args.report:
         with open(args.report, "w") as f:

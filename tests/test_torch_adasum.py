@@ -9,7 +9,10 @@
 * the config-5 dry run, the delta-flow optimizer (the torch cases of
   ``tests/test_adasum_optimizer.py``), and a reduced ResNet-18 trained two
   steps on 2 ranks against the Flax model under the reference's Adasum
-  ``DistributedOptimizer``.
+  ``DistributedOptimizer``;
+* the grouped combine (``adasum_combine_pairs_many``, its table builder,
+  ``Executor.adasum_many`` and the delta flow on it) against the per-leaf
+  path, bit for bit.
 
 Every reference cluster runs with ``HOROVOD_FUSION_THRESHOLD=0``: with
 fusion on, the reference combines fused leaves with bucket-wide
@@ -181,6 +184,111 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
             ck.adasum_combine_pairs(x, torch.zeros(4, 9))
 
 
+# -------------------------------------------------------- grouped combine
+def _bits(t):
+    """A tensor's bits as ints (NaN equals NaN, -0 differs from 0)."""
+    return t.contiguous().view({4: torch.int32, 2: torch.int16}[
+        t.element_size()])
+
+
+def _grouped_pair_sets(dtype):
+    """Pair sets of rows of 1, 257 and 4096 elements in ``dtype``: a tree
+    level's strided rows, zero rows ((0, b), (a, 0), (0, 0)) and a NaN
+    row."""
+    sets = []
+    for i, (m, n) in enumerate([(1, 1), (2, 257), (3, 4096), (1, 257)]):
+        a, b = _pairs(m, n, 40 + i)
+        sets.append([torch.from_numpy(a).to(dtype),
+                     torch.from_numpy(b).to(dtype)])
+    a, b = sets[2]
+    a[0] = 0
+    b[1] = 0
+    a[2] = b[2] = 0
+    sets[1][0][1, 100] = float("nan")
+    level = torch.stack(sets[3], 1).reshape(2, 257)
+    sets[3] = [level[0::2], level[1::2]]
+    return [tuple(p) for p in sets]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_many_plain_equals_per_leaf_plain_bit_for_bit(dtype):
+    ck.reset_launch_counts()
+    sets = _grouped_pair_sets(dtype)
+    want = [ck.adasum_combine_pairs_plain(a, b) for a, b in sets]
+    for got in (ck.adasum_combine_pairs_many_plain(sets),
+                ck.adasum_combine_pairs_many(sets)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert torch.equal(_bits(g), _bits(w))
+    assert torch.isnan(want[1][1]).all() and torch.isfinite(want[1][0]).all()
+    assert torch.equal(want[2][0], sets[2][1][0]) and not want[2][2].any()
+    assert ck.launch_counts()["adasum_combine_pairs"] == 0
+    assert ck.adasum_combine_pairs_many([]) == []
+
+
+def test_table_builder_groups_by_dtype_and_splits():
+    """One table per dtype, in the order first met, cut at the kernel's
+    limit; a row per non-empty pair set: (a, lda, b, ldb, out, m, n) and
+    the table's pairs."""
+    f32, b16, f16 = torch.float32, torch.bfloat16, torch.float16
+    shapes = [(2, 5, f32), (1, 3, b16), (3, 7, f32), (0, 4, f32),
+              (1, 9, f16), (4, 2, f32), (2, 6, b16), (1, 1, f32)]
+    sets = []
+    for m, n, dt in shapes:
+        buf = torch.zeros(2 * m, n, dtype=dt)
+        sets.append((buf[0::2], buf[1::2]))
+    outs = [torch.empty(m, n, dtype=dt) for m, n, dt in shapes]
+    tables = ck.adasum_tables(sets, outs, per_table=2)
+    assert [(dt, len(t) // 7, pairs) for dt, t, pairs in tables] == [
+        (f32, 2, 5), (f32, 2, 5), (b16, 2, 3), (f16, 1, 1)]
+    rows = [list(t[k:k + 7]) for dt, t, _ in tables
+            for k in range(0, len(t), 7)]
+    want = [[a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+             o.data_ptr(), a.shape[0], a.shape[1]]
+            for i in (0, 2, 5, 7, 1, 6, 4)
+            for (a, b), o in [(sets[i], outs[i])]]
+    assert rows == want
+    assert rows[0][1] == rows[0][3] == 10  # a tree level's rows, stride 2n
+    one = ck.adasum_tables(sets, outs, per_table=512)
+    assert [len(t) // 7 for _, t, _ in one] == [4, 2, 1]
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "row_stride", "mismatch",
+                                 "device"])
+def test_many_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """What the single-pair wrapper refuses, named by its pair set."""
+    x = torch.zeros(4, 8)
+    good = (x, x)
+    if bad == "dtype":
+        with pytest.raises(TypeError, match="pair set 1 a"):
+            ck.adasum_combine_pairs_many([good, (x.double(), x.double())])
+    elif bad == "rank":
+        with pytest.raises(ValueError, match="2-D"):
+            ck.adasum_combine_pairs_many([good, (x.reshape(-1),
+                                                 x.reshape(-1))])
+    elif bad == "row_stride":
+        with pytest.raises(ValueError, match="contiguous"):
+            ck.adasum_combine_pairs_many([(torch.zeros(8, 4).t(), x)])
+    elif bad == "mismatch":
+        with pytest.raises(ValueError, match="does not match"):
+            ck.adasum_combine_pairs_many([good, (x, torch.zeros(4, 9))])
+    else:
+        with pytest.raises(ValueError, match="meta"):
+            ck.adasum_combine_pairs_many([good, (x.to("meta"),
+                                                 x.to("meta"))])
+
+
+def test_signature_table_holds_the_grouped_launcher():
+    """The C prototypes of the grouped launcher and its two size queries
+    are declared (``test_torch_matmul.py`` holds every declaration to its
+    prototype)."""
+    assert {"hvd_adasum_combine_many", "hvd_adasum_table_entries",
+            "hvd_adasum_pair_bytes"} <= set(ck._SIGNATURES)
+    assert "hvd_adasum_scratch_floats" not in ck._SIGNATURES
+
+
 # ------------------------------------------------------ the port's clusters
 # executor cases: (dtype on the wire, elements)
 EX_CASES = [("float32", 257), ("float32", 4096), ("bfloat16", 257),
@@ -291,6 +399,81 @@ def _port_optimizer_cases(hvd, world):
     return out
 
 
+def _grouped_leaves(rank):
+    """Per-rank leaves of three sizes and dtypes, an all-zero one and one
+    with a NaN on rank 0."""
+    rng = np.random.RandomState(70 + rank)
+
+    def leaf(shape, dt):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dt)
+
+    nan = leaf((257,), torch.float32)
+    if rank == 0:
+        nan[3] = float("nan")
+    return [leaf((1,), torch.float32), leaf((257,), torch.bfloat16),
+            leaf((64, 64), torch.float32), torch.zeros(3, 5),
+            leaf((4096,), torch.float16), nan]
+
+
+FLOW_SHAPES = [((33, 7), torch.float32), ((33,), torch.float32),
+               ((5, 33), torch.bfloat16), ((5,), torch.float16)]
+
+
+def _flow_start():
+    """The delta flow's starting parameters, the same on every rank."""
+    rng = np.random.RandomState(5)
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dt)
+            for shape, dt in FLOW_SHAPES]
+
+
+def _delta_flow(hvd, per_leaf: bool):
+    """Parameters of three dtypes after two Adasum steps of
+    SGD(0.1, momentum 0.9) on rank-dependent gradients; ``per_leaf``: the
+    executor's grouped call replaced by one ``adasum`` a leaf."""
+    from horovod_tpu_torch import basics
+
+    rng = np.random.RandomState(90 + hvd.rank())
+    params = [torch.nn.Parameter(p) for p in _flow_start()]
+    grads = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+             for shape, _ in FLOW_SHAPES]
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.1, momentum=0.9),
+        named_parameters=[(f"p{i}", p) for i, p in enumerate(params)],
+        op=hvd.Adasum)
+    ex = basics._executor()
+    if per_leaf:
+        ex.adasum_many = lambda ts: [ex.adasum(t) for t in ts]
+    try:
+        for k in range(2):
+            opt.zero_grad()
+            sum(((p.float() * g) * (k + 1)).sum()
+                for p, g in zip(params, grads)).backward()
+            opt.step()
+    finally:
+        ex.__dict__.pop("adasum_many", None)
+    return [p.detach().clone() for p in params]
+
+
+def _grouped_cases(hvd, ex):
+    """The grouped combine against the per-leaf path on this rank."""
+    leaves = _grouped_leaves(hvd.rank())
+    got = ex.adasum_many(leaves)
+    want = [ex.adasum(t) for t in leaves]
+    grouped = _delta_flow(hvd, per_leaf=False)
+    per_leaf = _delta_flow(hvd, per_leaf=True)
+    return {
+        "executor_same": all(g.shape == w.shape and g.dtype == w.dtype
+                             and torch.equal(_bits(g), _bits(w))
+                             for g, w in zip(got, want)),
+        "executor": [g.float().numpy() for g in got],
+        "flow_same": all(torch.equal(_bits(g), _bits(w))
+                         for g, w in zip(grouped, per_leaf)),
+        "flow": [p.float().numpy() for p in grouped],
+        "flow_moved": all(not torch.equal(p, q)
+                          for p, q in zip(grouped, _flow_start())),
+    }
+
+
 def _port_slice(hvd, state_dict, batch, steps):
     """Reduced ResNet-18 trained through DistributedOptimizer(op=Adasum)."""
     from horovod_tpu_torch.models import resnet
@@ -352,6 +535,7 @@ def port_worker(world, state_dict=None):
     out["spmd_bf16"] = (yb.float().numpy(), str(yb.dtype))
     out["spmd_average"] = torch.equal(spmd.allreduce(x), hvd.allreduce(x))
     out["optimizer"] = _port_optimizer_cases(hvd, world)
+    out["grouped"] = _grouped_cases(hvd, ex)
     if world == 2:
         out["scaled"] = [
             hvd.allreduce(torch.from_numpy(_scaled_input(i, r)),
@@ -624,6 +808,25 @@ def test_adasum_optimizer_matches_numpy(world, port2, port4):
     for r in _port(world, port2, port4):
         assert r["optimizer"]["type"] == "_DistributedAdasumOptimizer"
         np.testing.assert_allclose(r["optimizer"]["numpy"], want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_grouped_combine_matches_the_per_leaf_path(world, port2, port4):
+    """``Executor.adasum_many`` gives ``Executor.adasum``'s bits leaf by
+    leaf (three dtypes, a zero leaf, a NaN), and the delta flow on it the
+    per-leaf flow's parameters, on every rank; ranks agree."""
+    port = _port(world, port2, port4)
+    for r in port:
+        g = r["grouped"]
+        assert g["executor_same"] and g["flow_same"] and g["flow_moved"]
+        for x, y in zip(g["executor"], port[0]["grouped"]["executor"]):
+            np.testing.assert_array_equal(x, y)
+        for x, y in zip(g["flow"], port[0]["grouped"]["flow"]):
+            np.testing.assert_array_equal(x, y)
+    nan_leaf = port[0]["grouped"]["executor"][-1]
+    assert np.isnan(nan_leaf).all()
+    zero_leaf = port[0]["grouped"]["executor"][3]
+    assert not zero_leaf.any()
 
 
 def test_adasum_optimizer_skip_synchronize_and_zero_grad_raise(port2):

@@ -1,9 +1,10 @@
 """The kernels against their plain twins on the card (K5, K7: flash
 attention; K8: LayerNorm; K9: AdamW; K6: the ring hop; K10: the matmul of
 the fused matmul + reduce-scatter; the int8 wire quantizers #1, its
-many-leaf launch, and #3), at small shapes and at the shapes where their
-paths part, with the tolerances of ``chip_smoke.py`` phases 1, 5, 6 and 7
-(the quantizers bit for bit).
+many-leaf launch, and #3; K4, the Adasum combine, alone and grouped), at
+small shapes and at the shapes where their paths part, with the
+tolerances of ``chip_smoke.py`` phases 1, 1b, 5, 6 and 7 (the quantizers
+bit for bit).
 
 Every test needs a CUDA device and skips without one. The module imports
 neither jax nor the reference, so that it runs where only PyTorch is
@@ -677,6 +678,116 @@ def test_int8_quantizers_launch_from_a_fresh_thread():
     spare = calls()  # freed blocks of every size the thread asks for
     torch.cuda.synchronize()
     del spare
+    got = {}
+
+    def run():
+        try:
+            got["out"] = calls()
+        except Exception as e:  # reported by the main thread
+            got["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    for g, w in zip(got["out"], want):
+        assert _same_bits(g, w)
+
+
+# ------------------------------------------------------------------- K4
+def _adasum_close(got, a, b):
+    """Within ``chip_smoke.py``'s ``ADASUM_RTOL`` bound of the twin, NaN
+    where the twin has NaN."""
+    from chip_smoke import adasum_error
+
+    want = ck.adasum_combine_pairs_plain(a, b)
+    assert got.dtype == a.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert adasum_error(got, want, a, b)[1] <= 1.0
+
+
+def _adasum_sets(gen):
+    """Pair sets the kernel's paths part at: one unit, several parts, a
+    unit of several tiles (past 192 tiles of 48 KB), bf16 and f16, and a
+    tree level's strided rows with an odd n (element loads)."""
+    from chip_smoke import adasum_pairs
+
+    sets = [adasum_pairs(m, n, gen, dt) for m, n, dt in (
+        (1, 1, torch.float32), (2, 257, torch.float32),
+        (3, 40000, torch.float32), (1, 3 * 2359296 + 5, torch.float32),
+        (2, 1024, torch.bfloat16), (1, 5000000, torch.bfloat16),
+        (2, 4096, torch.float16))]
+    level = torch.stack(adasum_pairs(4, 999, gen), 1).reshape(8, 999)
+    sets.append((level[0::2], level[1::2]))
+    return sets
+
+
+def test_adasum_single_and_grouped_match_twin():
+    """Each pair set alone and all of them in one grouped call (one launch
+    a dtype) within the twin's bound; a set gives the same bits alone and
+    inside the table, and two grouped launches the same bytes."""
+    sets = _adasum_sets(_gen())
+    single = [ck.adasum_combine_pairs(a, b) for a, b in sets]
+    assert ck.launch_counts()["adasum_combine_pairs"] == len(sets)
+    ck.reset_launch_counts()
+    grouped = ck.adasum_combine_pairs_many(sets)
+    again = ck.adasum_combine_pairs_many(sets)
+    assert ck.launch_counts()["adasum_combine_pairs"] == 2 * 3
+    torch.cuda.synchronize()
+    for (a, b), s, g, g2 in zip(sets, single, grouped, again):
+        _adasum_close(s, a, b)
+        assert _same_bits(g, s) and _same_bits(g2, g)
+
+
+def test_adasum_zero_and_nan_rows_as_the_twin():
+    """(0, b) -> b, (a, 0) -> a, (0, 0) -> 0 exactly; a NaN takes its whole
+    row and no other, alone and in a table."""
+    from chip_smoke import adasum_pairs
+
+    gen = _gen()
+    a, b = adasum_pairs(3, 50000, gen)
+    a[0] = 0
+    b[1] = 0
+    a[2] = b[2] = 0
+    x, y = adasum_pairs(2, 50000, gen)
+    x[1, 17] = float("nan")
+    for got in ([ck.adasum_combine_pairs(a, b), ck.adasum_combine_pairs(x, y)],
+                ck.adasum_combine_pairs_many([(a, b), (x, y)])):
+        zero, nan = got
+        assert _same_bits(zero[0], b[0]) and _same_bits(zero[1], a[1])
+        assert not zero[2].any()
+        assert torch.isnan(nan[1]).all() and torch.isfinite(nan[0]).all()
+        _adasum_close(nan, x, y)
+
+
+def test_adasum_table_over_the_limit_counts_its_launches():
+    """More pair sets than a table holds take one launch a table-full and
+    the bits of each set's own call."""
+    from chip_smoke import adasum_pairs
+
+    per_table = ck._kernel("hvd_adasum_table_entries")[1]()
+    gen = _gen()
+    sets = [adasum_pairs(1, 100 + 37 * i, gen) for i in range(per_table + 5)]
+    got = ck.adasum_combine_pairs_many(sets)
+    assert ck.launch_counts()["adasum_combine_pairs"] == 2
+    for (a, b), g in zip(sets, got):
+        assert _same_bits(g, ck.adasum_combine_pairs(a, b))
+
+
+def test_adasum_launches_from_a_fresh_thread():
+    """The single-pair and grouped calls from a thread that has made no
+    CUDA runtime call give the main thread's bytes."""
+    import threading
+
+    sets = _adasum_sets(_gen())[:4]
+
+    def calls():
+        return [ck.adasum_combine_pairs(*sets[2])] + \
+            ck.adasum_combine_pairs_many(sets)
+
+    want = calls()
+    torch.cuda.synchronize()
     got = {}
 
     def run():

@@ -355,13 +355,16 @@ def test_library_path_hashes_the_included_headers(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", ["matmul", "flash_attention_sm90",
                                   "layer_norm"])
 def test_sources_share_the_sm90_header(name):
-    """Only the wgmma / TMA sources take their Hopper helpers from
-    csrc/sm90.cuh, so its bytes are part of their libraries' hash; the
-    LayerNorm source and the others include no csrc header, so an edit of
-    those helpers rebuilds none of them."""
+    """Only the sources on Hopper's TMA -- the wgmma ones and the Adasum
+    combine's bulk loads -- take their helpers from csrc/sm90.cuh, so its
+    bytes are part of their libraries' hash; the LayerNorm source and the
+    others include no csrc header, so an edit of those helpers rebuilds
+    none of them."""
     headers = [] if name == "layer_norm" else ["sm90.cuh"]
     assert [p.name for p in _build.sources(name)] == [f"{name}.cu"] + headers
-    for other in ("wire_quant", "adasum", "flash_attention", "adamw"):
+    assert [p.name for p in _build.sources("adasum")] == ["adasum.cu",
+                                                          "sm90.cuh"]
+    for other in ("wire_quant", "flash_attention", "adamw"):
         assert [p.name for p in _build.sources(other)] == [f"{other}.cu"]
 
 
