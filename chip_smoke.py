@@ -36,14 +36,26 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 3. trains ResNet-50 at world size 2 (two gloo processes sharing the card) on
    the packed int8 wire and then the int4 wire, and checks that the
    parameters are bit-identical on both ranks;
+3b. drives the collective engine: at world size 1 (before phase 3, in
+   the script's process) ResNet-50's 161 gradient-shaped tensors, written
+   after a long spin of the current stream, go through ``allreduce_async_``
+   (a poll at once, the responses the engine fuses them into, the values
+   after ``synchronize``); then ResNet-50 at world size 2 (batch 32 per
+   rank, 224x224, 1 warm-up and 2 steps, cuDNN deterministic) through the
+   backward hooks, per tensor and with 25 MiB buckets
+   (``HOROVOD_BUCKET_MB``): (a) the exact wire, bit-identical across ranks
+   and between the two; (b) int8 with error feedback, ranks bit-identical
+   and at most one grouped #1 plus two a bucket a step; (c) Adasum, ranks
+   and the two bit-identical, K4 once a step per tensor (one batch) and at
+   most once a bucket bucketed; each with host ms and responses a step;
 4. trains ResNet-50 at world size 2 (batch 32 per rank, 224x224) for 2
    steps through ``DistributedOptimizer(op=Adasum)`` -- each step's 161
-   deltas combined in one grouped launch of the Adasum kernel -- and
-   checks bit-identical parameters, exactly one launch a step and finite
-   losses; then runs the Adasum dry run (257 f32 values per rank, plain
-   and through fp16) against the numpy oracle; 4c times one step's
-   combine alone, eager (one allreduce a leaf) and as the delta flow runs
-   it (one signature check, one grouped launch);
+   deltas enqueued in one batch of the engine and combined in one grouped
+   launch of the Adasum kernel -- and checks bit-identical parameters,
+   exactly one launch a step and finite losses; then runs the Adasum dry
+   run (257 f32 values per rank, plain and through fp16) against the numpy
+   oracle; 4c times one step's combine alone, eager (one allreduce a leaf)
+   and as the delta flow runs it (one batch, one grouped launch);
 4b. trains a ResNet-18 of width 8 at world size 4 (32x32, batch 4 per
    rank, 2 steps of Adasum: a two-level tree, one grouped launch a level)
    and checks bit-identical parameters on all four ranks and exactly two
@@ -89,7 +101,8 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    16384-token sequence for 2 steps through ``make_sp_train_step`` (96 K6
    and 96 K7 launches a step a rank) and checks bit-identical parameters
    and agreement with one world-1 step on the whole sequence, whose
-   attention is PyTorch's own; times a ring hop and the gradient allreduce;
+   attention is PyTorch's own; times a ring hop, the gradient allreduce
+   and the step's gradient mean per tensor and in 25 MiB buckets;
 6d. does the same at medium widths, 2 layers, on a dp=2 x sp=2 grid with a
    global batch of 2 x 4096;
 7. checks that the SASS of K10's bf16 kernels (``matmul.cu``) holds
@@ -1491,6 +1504,172 @@ def phase_world2() -> dict:
     return {"ranks": ranks, "seconds": time.perf_counter() - t0}
 
 
+# -------------------------------------------------------------- phase 3b
+# ResNet-50 at world 2 through the engine: the backward hooks enqueue each
+# gradient (or bucket, HOROVOD_BUCKET_MB) as an async request. Buckets of
+# 25 MiB, the default bucket size of PyTorch's DistributedDataParallel.
+ENGINE_BUCKET_MB = "25"
+ENGINE_CASES = (("exact", dict(compression="none", error_feedback=False)),
+                ("int8", dict(compression="int8", error_feedback=True)),
+                ("adasum", dict(op="adasum")))
+
+
+def engine_worker(batch: int, image: int, warmup: int, steps: int) -> dict:
+    """One rank of phase 3b: each case of ``ENGINE_CASES`` trained per
+    tensor and then with buckets (``synthetic_train``, launches counted
+    from 0 just before each run), with cuDNN held to deterministic
+    algorithms so that two runs can be compared bit for bit. Responses a
+    step leave out the model's ``broadcast_parameters``."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.optim.distributed import gradient_units
+    from horovod_tpu_torch.train import synthetic_train
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ.pop("HOROVOD_PACKED_WIRE", None)  # #1 on the int8 wire
+    eng = hvd.basics._engine()
+    model = resnet.ResNet50()
+    broadcasts = len(model.state_dict())
+    out = {"backend": hvd.backend(), "runs": {}}
+    try:
+        for label, kw in ENGINE_CASES:
+            for mb in ("", ENGINE_BUCKET_MB):
+                os.environ["HOROVOD_BUCKET_MB"] = mb
+                units, _ = gradient_units(model.named_parameters(),
+                                          hvd.Compression.none)
+                ck.reset_launch_counts()
+                before = eng.responses_performed
+                res = synthetic_train("ResNet50", batch=batch, image=image,
+                                      steps=steps, warmup=warmup, **kw)
+                res["counts"] = ck.launch_counts()
+                res["responses_per_step"] = (
+                    eng.responses_performed - before - broadcasts) / (
+                        warmup + steps)
+                res["host_ms_per_step"] = batch / res["images_per_sec"] * 1e3
+                res["units"] = len(units)
+                out["runs"][f"{label}{'_bucketed' if mb else ''}"] = res
+    finally:
+        os.environ.pop("HOROVOD_BUCKET_MB", None)
+    return out
+
+
+def phase_engine_world2() -> dict:
+    """Phase 3b (a)-(c): per tensor against bucketed, on two gloo ranks
+    sharing the card."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    warmup, steps = 1, 2
+    ran = warmup + steps
+    ranks = testing.run_cluster(engine_worker, np=2, device="cuda",
+                                args=(32, 224, warmup, steps), timeout=900)
+    runs = [r["runs"] for r in ranks]
+    ok = all(r["backend"] == "gloo" for r in ranks)
+    for label, _ in ENGINE_CASES:
+        per, buck = (f"{label}{s}" for s in ("", "_bucketed"))
+        same_ranks = all(len({r[k]["params_sha256"] for r in runs}) == 1
+                         for k in (per, buck))
+        same_paths = runs[0][per]["params_sha256"] == \
+            runs[0][buck]["params_sha256"]
+        finite = all(math.isfinite(v) for r in runs for k in (per, buck)
+                     for v in r[k]["losses"])
+        leaves = runs[0][per]["gradient_leaves"]
+        buckets = runs[0][buck]["units"]
+        resp = [runs[0][k]["responses_per_step"] for k in (per, buck)]
+        ms = [[round(r[k]["host_ms_per_step"], 1) for r in runs]
+              for k in (per, buck)]
+        counts = [runs[0][k]["counts"] for k in (per, buck)]
+        detail = ""
+        if label == "int8":
+            # error feedback: one grouped #1 a step; the wire: a quantize
+            # of each bucket and a requantize of its reduced chunk
+            q = [c["int8_quantize_2d"] / ran for c in counts]
+            ok_launch = 1 <= q[1] <= 1 + 2 * buckets
+            detail = (f"int8_quantize_2d launches a step per tensor {q[0]} "
+                      f"(error feedback's grouped one + 2 a quantized "
+                      f"tensor), bucketed {q[1]} (<= 1 + 2 x {buckets} "
+                      f"buckets: {ok_launch}); ")
+            same_paths = True  # a bucket's blocks span leaves: other bits
+        elif label == "adasum":
+            k4 = [c["adasum_combine_pairs"] / ran for c in counts]
+            ok_launch = k4[0] == 1 and 1 <= k4[1] <= buckets
+            detail = (f"adasum_combine_pairs launches a step per tensor "
+                      f"{k4[0]} (one batch: 1), bucketed {k4[1]} (<= "
+                      f"{buckets} buckets): {ok_launch}; ")
+        else:
+            ok_launch = resp == [leaves, buckets]
+        case_ok = same_ranks and same_paths and finite and ok_launch
+        log(f"phase 3b ({'abc'[[c for c, _ in ENGINE_CASES].index(label)]}):"
+            f" world 2 (gloo, one card) ResNet-50 batch 32/rank 224x224 "
+            f"{label} through the engine, {ran} steps ({warmup} warm-up): "
+            f"ranks bit-identical {same_ranks}, per tensor == bucketed "
+            f"({ENGINE_BUCKET_MB} MiB) bits "
+            f"{runs[0][per]['params_sha256'] == runs[0][buck]['params_sha256']}"
+            f"; {leaves} tensors vs {buckets} buckets, responses a step "
+            f"{resp}; {detail}host ms a step per rank per tensor {ms[0]}, "
+            f"bucketed {ms[1]}; losses "
+            f"{[round(v, 4) for v in runs[0][per]['losses']]}: ok={case_ok}")
+        ok = ok and case_ok
+    if not ok:
+        raise AssertionError("phase 3b (engine, world 2) failed its checks")
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def phase_engine_world1() -> dict:
+    """Phase 3b (d): the async API at world 1 on the card. ResNet-50's
+    gradient-shaped tensors, seeded, then rewritten after a long spin of
+    the current stream, are each enqueued with ``allreduce_async_``; a
+    poll made at once, the responses the engine formed (fused under
+    ``HOROVOD_FUSION_THRESHOLD``), and the values after ``synchronize``
+    (an average over one rank: the inputs, so a read that did not wait for
+    the rewrite would show)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+
+    dev = hvd.device()
+    eng = hvd.basics._engine()
+    gen = torch.Generator(dev).manual_seed(3)
+    base = [torch.randn(p.shape, device=dev, generator=gen)
+            for p in resnet.ResNet50().parameters()]
+    ts = [b.clone() for b in base]
+    torch.cuda.synchronize(dev)
+    res = {}
+    for rep in range(2):  # the first pays the engine stream's first use
+        for b in base:
+            b.add_(1.0)
+        torch.cuda._sleep(50_000_000)
+        for t in ts:
+            t.add_(1.0)
+        before = eng.responses_performed
+        t0 = time.perf_counter()
+        hs = [hvd.allreduce_async_(t, name=f"grad.{i}")
+              for i, t in enumerate(ts)]
+        polled = hvd.poll(hs[-1])
+        outs = [hvd.synchronize(h) for h in hs]
+        same = all(o is t and torch.equal(o, b)
+                   for o, t, b in zip(outs, ts, base))
+        torch.cuda.synchronize(dev)
+        res[rep] = {"host_ms": (time.perf_counter() - t0) * 1e3,
+                    "poll": polled, "same": same,
+                    "responses": eng.responses_performed - before}
+    same = all(r["same"] for r in res.values())
+    ok = same and not res[0]["poll"] and res[1]["responses"] < len(ts)
+    log(f"phase 3b (d): world 1 async API on the card, {len(ts)} "
+        f"ResNet-50 gradient tensors through allreduce_async_: poll at "
+        f"once {[res[k]['poll'] for k in res]}, responses "
+        f"{[res[k]['responses'] for k in res]} (fusion threshold "
+        f"{eng.controller.fusion_threshold()} bytes), values after "
+        f"synchronize equal the inputs written after a spin of the stream "
+        f"{same}, host ms {[round(res[k]['host_ms'], 1) for k in res]}: "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError("phase 3b (d), the async API at world 1, "
+                             "failed its checks")
+    return res
+
+
 # --------------------------------------------------------------- phase 4
 def adasum_worker(model: str, batch: int, image: int, steps: int,
                   num_filters: int, dryrun: bool) -> dict:
@@ -1521,15 +1700,14 @@ def adasum_worker(model: str, batch: int, image: int, steps: int,
 def adasum_allreduce_breakdown(model: str) -> dict:
     """The communication of one Adasum step alone, over a seeded tensor of
     each of ``model``'s parameter shapes, warm: an eager Adasum allreduce
-    of each in order, then (``flow_``) what the delta flow's step runs, one
-    signature check for all and ``Executor.adasum_many`` (a gather a
-    tensor, one grouped combine). Each: host-clock ms, then a profiled run:
-    combine launches, the combine kernel's device time, all device time,
-    and the host operations that take the most time."""
+    of each in order, then (``flow_``) what the delta flow's step runs:
+    every tensor enqueued in one batch, so that the engine gathers each and
+    combines them all in one grouped launch. Each: host-clock ms, then a
+    profiled run: combine launches, the combine kernel's device time, all
+    device time, and the host operations that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import basics
     from horovod_tpu_torch.models import resnet
     from horovod_tpu_torch.ops import collective_ops as ops
     from horovod_tpu_torch.ops import cuda_kernels as ck
@@ -1544,11 +1722,11 @@ def adasum_allreduce_breakdown(model: str) -> dict:
             hvd.allreduce(g, op=hvd.Adasum)
         torch.cuda.synchronize(dev)
 
-    def flow():  # what the delta flow's step runs: one check, the combine
-        ops.check_signatures([ops.signature("adasum", g, f"adasum.{i}",
-                                            hvd.Adasum)
-                              for i, g in enumerate(grads)])
-        basics._executor().adasum_many(grads)
+    def flow():  # what the delta flow's step runs: every delta in one batch
+        with ops.enqueue_together():
+            hs = [ops.allreduce_async(g, name=f"adasum.{i}", op=hvd.Adasum)
+                  for i, g in enumerate(grads)]
+        ops.synchronize_all(hs)
         torch.cuda.synchronize(dev)
 
     res = {"leaves": len(grads), "elements": sum(g.numel() for g in grads)}
@@ -2087,6 +2265,7 @@ def sp_train_worker(dp: int, sp: int, layers: int, batch: int, seq: int,
                                             make_sp_train_step,
                                             replicate_to_mesh, sp_model)
     from horovod_tpu_torch.parallel._comm import ppermute
+    from horovod_tpu_torch.parallel.sp_training import mean_gradients
     from horovod_tpu_torch.train import params_sha256, synthetic_lm_tokens
 
     if fault:
@@ -2138,12 +2317,22 @@ def sp_train_worker(dp: int, sp: int, layers: int, batch: int, seq: int,
                      dtype=torch.bfloat16, device=dev)
     dkv = kv.float()
     grads = [p.grad for p in net.parameters()]
+
+    def mean(bucket_mb):  # the step's gradient mean, over the grad group
+        os.environ["HOROVOD_BUCKET_MB"] = bucket_mb
+        try:
+            mean_gradients(list(net.parameters()), mesh.grad_group)
+        finally:
+            os.environ.pop("HOROVOD_BUCKET_MB")
+
     res["comm_ms"] = {
         "hop_kv_bf16": clock(lambda: ppermute(kv, mesh.sp_group)),
         "hop_dkv_f32": clock(lambda: ppermute(dkv, mesh.sp_group)),
         "allreduce_per_tensor": clock(lambda: [allreduce(g) for g in grads]),
         "allreduce_flat": clock(lambda: allreduce(torch.cat(
-            [g.flatten() for g in grads])))}
+            [g.flatten() for g in grads]))),
+        "grad_mean_per_tensor": clock(lambda: mean("")),
+        "grad_mean_bucketed": clock(lambda: mean(ENGINE_BUCKET_MB))}
     del step, net, grads, kv, dkv
     torch.cuda.empty_cache()
     dist.barrier()
@@ -2249,6 +2438,13 @@ def phase_sp_train(label: str, dp: int, sp: int, layers: int, batch: int,
         f"card): {[{k: round(v, 1) for k, v in c.items()} for c in comm]}, "
         f"so the ring's {2 * (sp - 1)} k/v and {sp} dk/dv hops a layer come "
         f"to {hops:.1f} s a step")
+    log(f"  {label} the step's gradient mean (host clock, the slowest rank): "
+        f"per tensor {max(c['grad_mean_per_tensor'] for c in comm) / 1e3:.3f}"
+        f" s, one flat all-reduce a {ENGINE_BUCKET_MB} MiB bucket "
+        f"{max(c['grad_mean_bucketed'] for c in comm) / 1e3:.3f} s; through "
+        f"the engine (one request a tensor) "
+        f"{max(c['allreduce_per_tensor'] for c in comm) / 1e3:.3f} s; on "
+        f"{CARD}")
     if not ok and not fault:
         raise AssertionError(f"sequence-parallel training ({label}) failed "
                              f"its checks")
@@ -2761,8 +2957,10 @@ def main(argv=None) -> int:
     lm1 = phase_lm_world1()
     lm_profile = phase_lm_profile()
     lm_small = phase_lm_small_agreement()
+    engine1 = phase_engine_world1()
     hvd.shutdown()
     world2 = phase_world2()
+    engine2 = phase_engine_world2()
     adasum2 = phase_adasum_world2()
     adasum4 = phase_adasum_world4()
     lm2 = phase_lm_world2()
@@ -2786,6 +2984,8 @@ def main(argv=None) -> int:
     runs = ([world1["counts"]]
             + [r[m]["counts"] for r in world2["ranks"]
                for m in ("int8", "int4")]
+            + [run["counts"] for r in engine2["ranks"]
+               for run in r["runs"].values()]
             + [r["counts"] for r in adasum2["ranks"] + adasum4["ranks"]]
             + [r["counts"] for r in lm1.values()]
             + [r["counts"] for r in lm2["ranks"]]
@@ -2802,7 +3002,8 @@ def main(argv=None) -> int:
                              f"{missing}")
     report = {"card": CARD, "kernels": list(kernels.values()),
               "world1": world1, "breakdown": breakdown, "small": small,
-              "world2": world2, "adasum_world2": adasum2,
+              "world2": world2, "engine_world1": engine1,
+              "engine_world2": engine2, "adasum_world2": adasum2,
               "attention_sass": attention_sass,
               "adasum_world4": adasum4, "lm_checks": lm_checks,
               "lm_world1": lm1, "lm_profile": lm_profile,

@@ -16,6 +16,12 @@ two ranks on one GPU). :func:`backend` says which.
 
 Entry points run on the card. They run on the CPU only when the caller asks
 (``init(device="cpu")``); with no card and no such request ``init`` raises.
+
+``init`` starts the collective engine (``runtime/engine.py``) and
+``shutdown`` stops it. In multiprocess mode the engine gets a process group
+of its own, made at ``init`` on every rank, so that collectives issued on
+the caller's thread (the parallel paths, ``spmd``) never interleave with
+the engine thread's on one group.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ class _GlobalState:
     device: Optional[torch.device] = None
     backend: Optional[str] = None  # "nccl" | "gloo" | None (standalone)
     executor: Any = None
+    engine: Any = None
     groups: dict = field(default_factory=dict)  # ranks -> process group
 
 
@@ -107,18 +114,24 @@ def init(device=None) -> None:
         else:
             dev = _resolve_device(device, 0)
             st = _GlobalState(initialized=True, device=dev)
-        from .runtime.executor import Executor
+        from .runtime.engine import Engine
 
-        st.executor = Executor(st.size, st.backend)
+        group = (dist.new_group(list(range(st.size)))
+                 if st.mode == "multiprocess" else None)
+        st.engine = Engine(st, group)
+        st.executor = st.engine._executor
+        st.engine.start()
         _state = st
 
 
 def shutdown() -> None:
-    """Tear down the process group (if any) and reset state."""
+    """Stop the engine, tear down the process group (if any) and reset
+    state."""
     global _state
     with _init_lock:
         if not _state.initialized:
             return
+        _state.engine.shutdown()
         if _state.mode == "multiprocess" and dist.is_initialized():
             dist.destroy_process_group()
         _state = _GlobalState()
@@ -182,3 +195,7 @@ def backend() -> Optional[str]:
 
 def _executor():
     return _require_init().executor
+
+
+def _engine():
+    return _require_init().engine

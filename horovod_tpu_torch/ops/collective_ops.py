@@ -1,102 +1,74 @@
-"""Synchronous collectives over ``torch.distributed`` (the synchronous subset
-of ``horovod_tpu/ops/collective_ops.py``; the async engine with fusion and
-handles comes later).
+"""Eager named collectives through the engine: allreduce, allgather,
+broadcast, alltoall and their async and in-place forms, ``poll``,
+``synchronize`` and ``join`` (the torch-native port of
+``horovod_tpu/ops/collective_ops.py`` and of the torch front end,
+``horovod_tpu/torch/__init__.py``).
+
+Every collective names its tensor (``<op>.noname.<n>`` when the caller
+gives no name: ranks that make the same calls in the same order name them
+alike) and is enqueued to the engine (``runtime/engine.py``); an async form
+returns a handle for ``poll`` / ``synchronize``, and the synchronous form is
+``synchronize(<op>_async(...))``. The ranks' requests are checked against
+each other before any data moves, and a mismatch raises
+``HorovodInternalError`` with the reference's message on every rank.
 
 Tensors stay on their device. At world size 1 every collective is the
-identity (a copy).
+identity (a copy), with only an allreduce's scale factors applied.
 
-Before a collective runs, the ranks compare what they submitted: one small
-all-gather of each call's signature (kind, name, shape, dtype, op and scale
-factors, wire, root), and a mismatch raises ``HorovodInternalError`` with
-the reference's message on every rank, before any data moves. This stands
-in for the engine's negotiation until that is ported; a caller that issues
-many collectives in a row (``DistributedOptimizer``) checks them all in one
-gather with :func:`check_signatures` and runs the unchecked forms.
-
-``allreduce``, ``allgather`` and ``broadcast`` are differentiable, with the
-reference's gradients (``horovod_tpu/torch/__init__.py``): the same
-reduction of the incoming gradient (a sum for Adasum), a sum-allreduce then
-this rank's rows, and a sum-allreduce kept on the root and zero elsewhere.
+``allreduce``, ``allgather``, ``broadcast`` and ``alltoall`` are
+differentiable, with the reference's gradients: the same reduction of the
+incoming gradient (a sum for Adasum), a sum-allreduce then this rank's rows,
+a sum-allreduce kept on the root and zero elsewhere, and the exchange run
+backwards.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from .. import basics
 from ..basics import Adasum, Average, Sum
-from ..exceptions import HorovodInternalError
-from ..runtime.executor import _collective
+from ..exceptions import HorovodError
+from ..runtime.messages import AlltoallvResult, RequestType, TensorTableEntry
 from .compression import Compression
 
-_KINDS = {Average: "allreduce", Sum: "allreduce", Adasum: "adasum"}
+
+def _enqueue(request_type: RequestType, tensor: torch.Tensor, name: str, *,
+             root_rank: int = -1, average: bool = False,
+             prescale: float = 1.0, postscale: float = 1.0, callback=None,
+             splits=None, wire: str = "", fusable: bool = True, parts=None,
+             inplace: Optional[torch.Tensor] = None) -> int:
+    entry = TensorTableEntry(
+        tensor_name=name, rank=basics.rank(), request_type=request_type,
+        array=tensor.detach(), root_rank=root_rank, average=average,
+        prescale_factor=prescale, postscale_factor=postscale,
+        callback=callback, splits=splits, compression=wire, fusable=fusable,
+        parts=parts)
+    return basics._engine().enqueue(entry, inplace=inplace)
 
 
-def signature(kind: str, tensor: torch.Tensor, name: Optional[str] = None,
-              op: Optional[int] = None, scales=(1.0, 1.0),
-              wire: Optional[str] = None, root: Optional[int] = None):
-    """What the ranks must agree on for one collective."""
-    return (kind, name, tuple(tensor.shape), str(tensor.dtype), op,
-            tuple(scales), wire, root)
+def _auto_name(prefix: str, name: Optional[str]) -> str:
+    return basics._engine().auto_name(prefix, name)
 
 
-def _mismatch(per_rank: List[list]) -> Optional[str]:
-    """The reference's error for the first collective the ranks disagree
-    on (``runtime/pycontroller.py:_validate``), with every rank's value;
-    None when they agree."""
-    counts = [len(s) for s in per_rank]
-    if len(set(counts)) > 1:
-        return ("Mismatched number of collectives submitted together: "
-                + ", ".join(f"rank {r} {n}" for r, n in enumerate(counts)))
-    for sigs in zip(*per_rank):
-        kind, name, shape, dtype, op, scales, wire, root = sigs[0]
-        label = name if name is not None else "<unnamed>"
-
-        def differ(field, shown=None):
-            values = [shown(s) if shown else s[field] for s in sigs]
-            if len(set(values)) == 1:
-                return ""
-            return ": " + ", ".join(f"rank {r} {v}"
-                                    for r, v in enumerate(values))
-
-        checks = (
-            (0, None, f"Mismatched collective operations for tensor "
-                      f"'{label}'"),
-            (1, None, "Mismatched tensor names"),
-            (3, None, f"Mismatched data types for tensor '{label}'"),
-            (None, lambda s: (s[4], s[5]), f"Mismatched reduction op/scale "
-                                           f"factors for tensor '{label}'"),
-            (6, None, f"Mismatched compression for tensor '{label}': set "
-                      "HOROVOD_COMPRESSION identically on every rank"),
-            (None, (lambda s: s[2][1:]) if kind == "allgather"
-             else (lambda s: s[2]),
-             f"Mismatched allgather tensor shapes beyond first dimension for "
-             f"'{label}'" if kind == "allgather"
-             else f"Mismatched tensor shapes for '{label}'"),
-            (7, None, f"Mismatched root ranks for broadcast '{label}'"))
-        for field, shown, message in checks:
-            detail = differ(field, shown)
-            if detail:
-                return message + detail
-    return None
+def enqueue_together():
+    """A context manager: the collectives enqueued inside reach the engine
+    in one tick, and a run of Adasum requests among them is combined in
+    one launch a tree level. Every rank must enqueue the same requests
+    inside it."""
+    return basics._engine().batch()
 
 
-def check_signatures(sigs: Sequence[tuple]) -> List[list]:
-    """All-gather this rank's ``sigs`` (see :func:`signature`) and raise
-    ``HorovodInternalError`` on every rank if the ranks disagree; returns
-    every rank's list. At world size 1 nothing is exchanged."""
-    st = basics._require_init()
-    if st.size == 1:
-        return [list(sigs)]
-    per_rank: List[list] = [None] * st.size
-    dist.all_gather_object(per_rank, list(sigs))
-    err = _mismatch(per_rank)
-    if err:
-        raise HorovodInternalError(err)
-    return per_rank
+def _inplace_callback(tensor: torch.Tensor):
+    """Completion callback writing the result into ``tensor`` (on the
+    engine's stream on the card)."""
+    def cb(ok, result):
+        if ok:
+            with torch.no_grad():
+                tensor.copy_(result)
+    return cb
 
 
 def _check_op(op: int, prescale_factor: float,
@@ -110,16 +82,66 @@ def _check_op(op: int, prescale_factor: float,
         raise ValueError(f"unknown reduce op {op!r}")
 
 
-def allreduce_unchecked(tensor: torch.Tensor, op: int = Average,
-                        wire: Optional[str] = None, prescale: float = 1.0,
-                        postscale: float = 1.0) -> torch.Tensor:
-    """The reduction of the wire tensor itself, with no signature check and
-    no gradient (the caller checked; see :func:`check_signatures`)."""
+def _check_gather(tensor: torch.Tensor) -> None:
+    if tensor.dim() == 0:
+        raise ValueError(
+            "hvd.allgather requires a tensor with at least one dimension (got "
+            "a 0-dim scalar); reshape with tensor.reshape(1) first")
+
+
+# ----------------------------------------------------------------- allreduce
+def _allreduce(tensor, name, op, prescale_factor, postscale_factor,
+               callback, compression, fusable=True, parts=None,
+               inplace=None) -> int:
+    _check_op(op, prescale_factor, postscale_factor)
+    name = _auto_name("allreduce", name)
     if op == Adasum:
-        return basics._executor().adasum(tensor)
-    return basics._executor().allreduce(tensor, average=(op == Average),
-                                        wire=wire, prescale=prescale,
-                                        postscale=postscale)
+        return _enqueue(RequestType.ADASUM, tensor, name, callback=callback,
+                        fusable=fusable, parts=parts, inplace=inplace)
+    return _enqueue(RequestType.ALLREDUCE, tensor, name,
+                    average=(op == Average), prescale=prescale_factor,
+                    postscale=postscale_factor, callback=callback,
+                    wire=compression.wire or "", fusable=fusable,
+                    inplace=inplace)
+
+
+def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    op: int = Average, prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0, callback=None,
+                    compression=Compression.none, fusable: bool = True,
+                    parts=None) -> int:
+    """Asynchronous allreduce; returns a handle. ``callback(ok,
+    result_or_error)`` runs on the engine thread at completion, before
+    ``synchronize`` returns. ``compression`` is the wire: int8 / int4
+    quantize inside the executor (Sum and Average; Adasum rides the exact
+    wire); a cast compressor belongs on :func:`allreduce`, which owns the
+    decompress side. ``fusable=False`` marks a client-built bucket that the
+    controller must not merge with others; ``parts`` (Adasum) are its
+    members' element counts, each combined with its own coefficients."""
+    return _allreduce(tensor, name, op, prescale_factor, postscale_factor,
+                      callback, compression, fusable, parts)
+
+
+def allreduce_async_(tensor: torch.Tensor, name: Optional[str] = None,
+                     op: int = Average, prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0,
+                     compression=Compression.none) -> int:
+    """In-place async allreduce: the completion callback writes the result
+    into ``tensor`` before the handle completes, and ``synchronize``
+    returns ``tensor``."""
+    return _allreduce(tensor, name, op, prescale_factor, postscale_factor,
+                      _inplace_callback(tensor), compression,
+                      inplace=tensor)
+
+
+def allreduce_(tensor: torch.Tensor, name: Optional[str] = None,
+               op: int = Average, prescale_factor: float = 1.0,
+               postscale_factor: float = 1.0,
+               compression=Compression.none) -> torch.Tensor:
+    """In-place allreduce; returns ``tensor``."""
+    return synchronize(allreduce_async_(
+        tensor, name=name, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, compression=compression))
 
 
 class _Allreduce(torch.autograd.Function):
@@ -128,16 +150,18 @@ class _Allreduce(torch.autograd.Function):
     feeds every rank's loss); Adasum takes the reference's sum-allreduce."""
 
     @staticmethod
-    def forward(ctx, x, op, wire, prescale, postscale):
+    def forward(ctx, x, op, name, compression, prescale, postscale):
         ctx.op = op if op in (Sum, Average) else Sum
         ctx.scales = (prescale, postscale) if op != Adasum else (1.0, 1.0)
-        return allreduce_unchecked(x, op, wire, prescale, postscale)
+        return synchronize(allreduce_async(
+            x, name=name, op=op, prescale_factor=prescale,
+            postscale_factor=postscale, compression=compression))
 
     @staticmethod
     def backward(ctx, dy):
         return (allreduce(dy, op=ctx.op, prescale_factor=ctx.scales[0],
                           postscale_factor=ctx.scales[1]),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def allreduce(tensor: torch.Tensor, op: int = Average,
@@ -152,17 +176,36 @@ def allreduce(tensor: torch.Tensor, op: int = Average,
     quantize inside the executor for Sum and Average, and Adasum bypasses
     them (exact wire). ``prescale_factor`` / ``postscale_factor`` scale
     each contribution before and the result after a Sum or Average; Adasum,
-    whose rule is scale-invariant, refuses them. ``name`` labels the tensor
-    in the cross-rank check. Differentiable (see the module's docstring);
-    the casts of a compressor are torch operations, so the gradient flows
-    through them too."""
+    whose rule is scale-invariant, refuses them. Differentiable (see the
+    module's docstring); the casts of a compressor are torch operations, so
+    the gradient flows through them too."""
     _check_op(op, prescale_factor, postscale_factor)
     comp, ctx = compression.compress(tensor)
-    wire = None if op == Adasum else compression.wire
-    check_signatures([signature(_KINDS[op], comp, name, op,
-                                (prescale_factor, postscale_factor), wire)])
-    out = _Allreduce.apply(comp, op, wire, prescale_factor, postscale_factor)
+    out = _Allreduce.apply(comp, op, name, compression, prescale_factor,
+                           postscale_factor)
     return compression.decompress(out, ctx)
+
+
+# ----------------------------------------------------------------- broadcast
+def broadcast_async(tensor: torch.Tensor, root_rank: int,
+                    name: Optional[str] = None, callback=None) -> int:
+    return _enqueue(RequestType.BROADCAST, tensor,
+                    _auto_name("broadcast", name), root_rank=root_rank,
+                    callback=callback)
+
+
+def broadcast_async_(tensor: torch.Tensor, root_rank: int,
+                     name: Optional[str] = None) -> int:
+    """In-place async broadcast; ``synchronize`` returns ``tensor``."""
+    return _enqueue(RequestType.BROADCAST, tensor,
+                    _auto_name("broadcast", name), root_rank=root_rank,
+                    callback=_inplace_callback(tensor), inplace=tensor)
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int,
+               name: Optional[str] = None) -> torch.Tensor:
+    """In-place broadcast; returns ``tensor``."""
+    return synchronize(broadcast_async_(tensor, root_rank, name=name))
 
 
 class _Broadcast(torch.autograd.Function):
@@ -170,77 +213,153 @@ class _Broadcast(torch.autograd.Function):
     the sum of every rank's incoming gradient, and the others' zero."""
 
     @staticmethod
-    def forward(ctx, x, root):
-        st = basics._require_init()
+    def forward(ctx, x, root, name):
         ctx.root = root
-        return _collective("broadcast", x.detach(), st.backend, st.size,
-                           root=root)
+        return synchronize(broadcast_async(x, root, name=name))
 
     @staticmethod
     def backward(ctx, dy):
         g = allreduce(dy, op=Sum)
         if basics.rank() != ctx.root:
             g = torch.zeros_like(g)
-        return g, None
+        return g, None, None
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               name: Optional[str] = None) -> torch.Tensor:
     """``tensor`` from ``root_rank`` on every rank (a new tensor);
     differentiable."""
-    st = basics._require_init()
-    if not 0 <= root_rank < st.size:
-        raise ValueError(f"broadcast: root_rank {root_rank} outside world "
-                         f"size {st.size}")
-    if st.size == 1:
-        return tensor.clone()
-    check_signatures([signature("broadcast", tensor, name, root=root_rank)])
-    return _Broadcast.apply(tensor, root_rank)
+    return _Broadcast.apply(tensor, root_rank, name)
 
 
-def broadcast_unchecked(tensor: torch.Tensor,
-                        root_rank: int = 0) -> torch.Tensor:
-    """:func:`broadcast` with no signature check and no gradient."""
-    st = basics._require_init()
-    if st.size == 1:
-        return tensor.clone()
-    return _collective("broadcast", tensor.detach(), st.backend, st.size,
-                       root=root_rank)
+# ----------------------------------------------------------------- allgather
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
+    _check_gather(tensor)
+    return _enqueue(RequestType.ALLGATHER, tensor,
+                    _auto_name("allgather", name))
 
 
 class _Allgather(torch.autograd.Function):
     """Rank-order concatenation of ragged dim-0 blocks; the adjoint is a
-    sum-allreduce of the incoming gradient, then this rank's rows."""
+    sum-allreduce of the incoming gradient, then this rank's rows, at the
+    offset given by an allgather of every rank's dim 0."""
 
     @staticmethod
-    def forward(ctx, x, sizes):
-        st = basics._require_init()
-        top = max(sizes)
-        padded = x.detach()
-        if x.shape[0] < top:  # every rank sends the same number of rows
-            padded = torch.cat([padded, padded.new_zeros(
-                (top - x.shape[0],) + tuple(x.shape[1:]))])
-        parts = _collective("all_gather", padded, st.backend, st.size)
-        ctx.rows = (sum(sizes[:st.rank]), x.shape[0])
-        return torch.cat([parts[r * top:r * top + n]
-                          for r, n in enumerate(sizes)])
+    def forward(ctx, x, name):
+        ctx.dim0 = x.shape[0]
+        return synchronize(allgather_async(x, name=name))
 
     @staticmethod
     def backward(ctx, dy):
-        return allreduce(dy, op=Sum).narrow(0, *ctx.rows), None
+        g = allreduce(dy, op=Sum)
+        dims = allgather(torch.tensor([ctx.dim0], dtype=torch.int64,
+                                      device=dy.device))
+        offset = int(dims[:basics.rank()].sum())
+        return g.narrow(0, offset, ctx.dim0), None
 
 
 def allgather(tensor: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
     """Concatenation along dim 0 of every rank's ``tensor``, in rank order;
     the first dimension may differ between ranks, the others may not.
     Differentiable."""
-    if tensor.dim() == 0:
-        raise ValueError(
-            "hvd.allgather requires a tensor with at least one dimension (got "
-            "a 0-dim scalar); reshape with tensor.reshape(1) first")
+    _check_gather(tensor)
+    return _Allgather.apply(tensor, name)
+
+
+# ------------------------------------------------------------------ alltoall
+def alltoall_async(tensor: torch.Tensor, splits=None,
+                   name: Optional[str] = None) -> int:
+    """Without ``splits``: dim 0 splits into ``size()`` equal blocks and
+    block r goes to rank r. With ``splits`` (one non-negative count a rank,
+    summing to dim 0): rank r gets ``splits[r]`` rows; the output
+    concatenates what every rank sent, in source order."""
+    if splits is not None:
+        splits = tuple(int(s) for s in splits)
+        world = basics.size()
+        if len(splits) != world:
+            raise ValueError(
+                f"alltoall splits must have one entry per rank "
+                f"({world}); got {len(splits)}")
+        if any(s < 0 for s in splits):
+            raise ValueError("alltoall splits must be non-negative")
+        d0 = tensor.shape[0] if tensor.dim() else 0
+        if sum(splits) != d0:
+            raise ValueError(
+                f"alltoall splits sum to {sum(splits)} but tensor dim 0 "
+                f"is {d0}")
+    return _enqueue(RequestType.ALLTOALL, tensor,
+                    _auto_name("alltoall", name), splits=splits)
+
+
+class _Alltoall(torch.autograd.Function):
+    """The equal exchange is a permutation of blocks, its own adjoint; the
+    ragged form's adjoint exchanges the gradient with the forward's
+    received counts as its splits."""
+
+    @staticmethod
+    def forward(ctx, x, splits, name):
+        res = synchronize(alltoall_async(x, splits=splits, name=name))
+        if isinstance(res, AlltoallvResult):
+            ctx.recv = res.received_splits
+            rs = torch.tensor(ctx.recv, dtype=torch.int32)
+            ctx.mark_non_differentiable(rs)
+            return res.output, rs
+        ctx.recv = None
+        return res
+
+    @staticmethod
+    def backward(ctx, dy, *unused):
+        if ctx.recv is not None:
+            return alltoall(dy, splits=ctx.recv)[0], None, None
+        return alltoall(dy), None, None
+
+
+def alltoall(tensor: torch.Tensor, splits=None, name: Optional[str] = None):
+    """Without ``splits``: the exchanged tensor. With ``splits``: ``(output,
+    received_splits)``, ``received_splits[src]`` the rows that came from
+    rank ``src`` (int32). Differentiable."""
+    if splits is not None:
+        splits = tuple(int(s) for s in splits)
+    return _Alltoall.apply(tensor, splits, name)
+
+
+# ------------------------------------------------------------- join / handles
+def join() -> int:
+    """Signal that this rank is out of data; blocks until every rank has
+    joined and returns the last rank to join. Multiprocess mode needs the
+    cross-process control plane for it, which is not ported."""
     st = basics._require_init()
-    if st.size == 1:
-        return tensor.clone()
-    per_rank = check_signatures([signature("allgather", tensor, name)])
-    sizes = [sigs[0][2][0] for sigs in per_rank]
-    return _Allgather.apply(tensor, sizes)
+    if st.mode == "multiprocess" and st.size > 1:
+        raise NotImplementedError(
+            "join() in multiprocess mode requires the cross-process control "
+            "plane (launch via hvdrun / horovod_tpu.run so ranks share a "
+            "coordinator address channel).")
+    eng = basics._engine()
+    return eng.synchronize(eng.join(st.rank))
+
+
+def poll(handle: int) -> bool:
+    """True once the collective of ``handle`` has completed."""
+    return basics._engine().poll(handle)
+
+
+def synchronize(handle: int):
+    """Block until the collective of ``handle`` completes and return its
+    result (an in-place form returns its tensor); raises
+    ``HorovodInternalError`` on a negotiation or execution failure."""
+    return basics._engine().synchronize(handle)
+
+
+def synchronize_all(handles) -> list:
+    """:func:`synchronize` of every handle, in order; the first error is
+    raised once all have completed, so none is left pending."""
+    results, error = [], None
+    for h in handles:
+        try:
+            results.append(synchronize(h))
+        except HorovodError as exc:
+            results.append(None)
+            error = error or exc
+    if error is not None:
+        raise error
+    return results

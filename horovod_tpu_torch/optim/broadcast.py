@@ -8,18 +8,14 @@ import torch
 import torch.distributed as dist
 
 from .. import basics
-from ..ops.collective_ops import (broadcast_unchecked, check_signatures,
-                                  signature)
+from ..ops.collective_ops import broadcast_async_, synchronize_all
 
 
 def _broadcast_all(named, root_rank: int) -> None:
-    """Broadcast each ``(name, tensor)`` from ``root_rank`` in place, the
-    ranks' tensors checked against each other in one gather first."""
-    check_signatures([signature("broadcast", t, name, root=root_rank)
-                      for name, t in named])
-    with torch.no_grad():
-        for _, t in named:
-            t.copy_(broadcast_unchecked(t, root_rank))
+    """Broadcast each ``(name, tensor)`` from ``root_rank`` in place: all
+    enqueued first, then drained in order."""
+    synchronize_all([broadcast_async_(t, root_rank, name=name)
+                     for name, t in named])
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

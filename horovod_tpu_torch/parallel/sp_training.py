@@ -35,6 +35,7 @@ import torch
 from .. import basics
 from ..models.transformer import lm_loss
 from ..optim.broadcast import broadcast_parameters
+from ..optim.distributed import _bucket_bytes, partition_buckets
 from ._comm import _exchange, axis, gather_blocks
 from .ring_attention import ring_attention
 
@@ -139,12 +140,37 @@ def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
     return _exchange("all_reduce", t, group) / axis(group)[0]
 
 
+def mean_gradients(params, group) -> None:
+    """Set each parameter's ``.grad`` to its mean over ``group`` (zeros
+    where it is None: a parameter this rank left unused). One all-reduce a
+    tensor, or under ``HOROVOD_BUCKET_MB`` one flat all-reduce a bucket of
+    :func:`partition_buckets` (a dtype change closes a bucket)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    bucket_bytes = _bucket_bytes()
+    if not bucket_bytes:
+        for p, g in zip(params, grads):
+            p.grad = _group_mean(g, group)
+        return
+    for bucket in partition_buckets([g.numel() * g.element_size()
+                                     for g in grads],
+                                    [g.dtype for g in grads], bucket_bytes):
+        mean = _group_mean(torch.cat([grads[i].reshape(-1) for i in bucket]),
+                           group)
+        off = 0
+        for i in bucket:
+            n = grads[i].numel()
+            params[i].grad = mean[off:off + n].reshape(grads[i].shape)
+            off += n
+
+
 def make_sp_train_step(model, optimizer, mesh):
     """``step(tokens, targets) -> loss``: one training step on the GLOBAL
     ``[B, T]`` batch (the same on every rank; shift the targets before
     sharding, so that they are right across block edges). The step takes
     this rank's block, runs ``lm_loss`` on it at position ``sp_rank * T /
-    sp``, averages every gradient over ``mesh.grad_group``, steps
+    sp``, averages every gradient over ``mesh.grad_group``
+    (:func:`mean_gradients`), steps
     ``optimizer`` and returns the loss averaged over that group.
 
     The tensor-parallel and 3D steps are this one on their meshes
@@ -161,9 +187,7 @@ def make_sp_train_step(model, optimizer, mesh):
         loss = lm_loss(model(tok, pos_offset=mesh.sp_rank * tok.shape[1]),
                        tgt)
         loss.backward()
-        for p in params:  # zeros for a parameter this rank left unused
-            p.grad = _group_mean(p.grad if p.grad is not None
-                                 else torch.zeros_like(p), mesh.grad_group)
+        mean_gradients(params, mesh.grad_group)
         optimizer.step()
         return _group_mean(loss.detach(), mesh.grad_group)
 

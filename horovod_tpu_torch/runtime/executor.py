@@ -1,7 +1,10 @@
-"""Data-plane programs of the allreduce (subset of
-``horovod_tpu/runtime/executor.py``): the exact wire, the block-quantized
-int8 / int4 wire with its bypass rules and byte accounting, and the Adasum
-combine tree.
+"""Data-plane programs of the engine (subset of
+``horovod_tpu/runtime/executor.py``): :meth:`Executor.execute` runs one
+negotiated response -- the allreduce on the exact wire or the
+block-quantized int8 / int4 wire (with its bypass rules and byte
+accounting) over the response's tensors packed into one flat buffer, the
+Adasum combine tree, the ragged allgather, broadcast and alltoall(v) --
+over ``torch.distributed``.
 
 The quantized allreduce is the reference's ``_allreduce_q_fn``: pad the f32
 row to ``world`` chunks of whole blocks, quantize, all-to-all (the
@@ -23,6 +26,7 @@ import torch.distributed as dist
 from ..exceptions import HorovodInternalError
 from ..ops import compression as comp
 from ..ops import cuda_kernels as ck
+from .messages import AlltoallvResult, ResponseType
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -119,16 +123,138 @@ def start_ppermute(t: torch.Tensor, backend: Optional[str], group=None,
     return wait
 
 
-class Executor:
-    """Per-process allreduce executor. ``last_wire_mode`` /
-    ``last_wire_bytes`` record what the last allreduce put on the wire
-    (as ``_record_wire`` does in the reference)."""
+def _pack(entries) -> torch.Tensor:
+    """One rank's entries as one flat buffer, in response order (the
+    reference's ``_pack``, MemcpyInFusionBuffer); a single entry is a
+    view."""
+    parts = [e.array.reshape(-1) for e in entries]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
-    def __init__(self, world: int, backend: Optional[str]):
+
+def _unpack(flat: torch.Tensor, entries) -> list:
+    """``flat`` split back into views of the entries' shapes."""
+    outs, off = [], 0
+    for e in entries:
+        n = e.array.numel()
+        outs.append(flat[off:off + n].reshape(e.array.shape))
+        off += n
+    return outs
+
+
+class Executor:
+    """Per-process executor over the process ``group`` (None: every rank).
+    ``last_wire_mode`` / ``last_wire_bytes`` record what the last allreduce
+    put on the wire (as ``_record_wire`` does in the reference)."""
+
+    def __init__(self, world: int, backend: Optional[str], group=None):
         self._world = world
         self._backend = backend
+        self._group = group
         self.last_wire_mode = ""
         self.last_wire_bytes = 0
+
+    def _collective(self, kind: str, t: torch.Tensor,
+                    root: int = 0) -> torch.Tensor:
+        return _collective(kind, t, self._backend, self._world, root=root,
+                           group=self._group)
+
+    # ------------------------------------------------------------ execute
+    def execute(self, response, entries_by_rank) -> dict:
+        """Run one negotiated response over this process's entries
+        (``{rank: [entries in response order]}``); returns ``{rank:
+        [results]}``, each on its entry's device. Allreduce packs the
+        entries into one flat buffer and splits the result back; Adasum
+        combines each tensor with its own coefficients
+        (:meth:`execute_adasum`); allgather takes the dim-0 sizes that
+        negotiation put in ``response.tensor_sizes`` (every rank's, per
+        tensor), and a ragged alltoall its send matrix, flattened by
+        source."""
+        (rank, entries), = entries_by_rank.items()
+        rt = response.response_type
+        self.last_wire_mode = ""
+        self.last_wire_bytes = 0
+        if rt == ResponseType.ALLREDUCE:
+            outs = self._exec_allreduce(response, entries)
+        elif rt == ResponseType.ADASUM:
+            outs = self.execute_adasum([entries])[0]
+        elif rt == ResponseType.ALLGATHER:
+            outs = self._exec_allgather(response, entries)
+        elif rt == ResponseType.BROADCAST:
+            outs = [self._collective("broadcast", e.array,
+                                     root=response.root_rank)
+                    if self._world > 1 else e.array.clone()
+                    for e in entries]
+        elif rt == ResponseType.ALLTOALL:
+            outs = [self._exec_alltoall(response, e, rank) for e in entries]
+        else:
+            raise ValueError(f"unsupported response type {rt}")
+        return {rank: outs}
+
+    def _exec_allreduce(self, response, entries) -> list:
+        e0 = entries[0]
+        kw = dict(average=response.average,
+                  wire=response.compression or None,
+                  prescale=e0.prescale_factor, postscale=e0.postscale_factor)
+        if self._world == 1:  # each tensor, with only its scale factors
+            return [self.allreduce(e.array, **kw) for e in entries]
+        return _unpack(self.allreduce(_pack(entries), **kw), entries)
+
+    def execute_adasum(self, groups) -> list:
+        """The Adasum results of several responses' entries (``groups``, a
+        list of entry lists): every entry gathered on its own, in order,
+        then one :meth:`adasum_many` call for all of them, so one kernel
+        launch a tree level (and dtype) on the card. A bucket entry
+        (``parts``) is combined member by member. Returns the results
+        grouped as ``groups``."""
+        entries = [e for es in groups for e in es]
+        tensors = [e.array for e in entries]
+        if any(e.parts is not None for e in entries):
+            outs = self.adasum_many(tensors, [e.parts for e in entries])
+        else:
+            outs = self.adasum_many(tensors)
+        res, k = [], 0
+        for es in groups:
+            res.append(outs[k:k + len(es)])
+            k += len(es)
+        return res
+
+    def _exec_allgather(self, response, entries) -> list:
+        if self._world == 1:
+            return [e.array.clone() for e in entries]
+        outs = []
+        for e, sizes in zip(entries, response.tensor_sizes):
+            x = e.array
+            top = max(sizes)
+            if x.shape[0] < top:  # every rank sends the same number of rows
+                x = torch.cat([x, x.new_zeros((top - x.shape[0],)
+                                              + tuple(x.shape[1:]))])
+            parts = self._collective("all_gather", x)
+            outs.append(torch.cat([parts[r * top:r * top + n]
+                                   for r, n in enumerate(sizes)]))
+        return outs
+
+    def _exec_alltoall(self, response, e, rank: int):
+        """Equal split (dim 0 in ``world`` blocks, block r to rank r), or
+        with ``e.splits`` the ragged form: rank r gets ``splits[r]`` rows
+        from every rank, in source order, and the received counts come
+        back beside the output."""
+        if e.splits is None:
+            if self._world == 1:
+                return e.array.clone()
+            return self._collective("all_to_all", e.array)
+        if self._world == 1:
+            return AlltoallvResult(e.array.clone(), (int(e.array.shape[0]),))
+        w = self._world
+        flat = response.tensor_sizes[0]
+        matrix = [flat[r * w:(r + 1) * w] for r in range(w)]
+        recv = tuple(int(matrix[src][rank]) for src in range(w))
+        dev = e.array.device
+        t = _staged(e.array, self._backend)
+        out = t.new_empty((sum(recv),) + tuple(t.shape[1:]))
+        dist.all_to_all_single(out, t, output_split_sizes=list(recv),
+                               input_split_sizes=list(e.splits),
+                               group=self._group)
+        return AlltoallvResult(out.to(dev), recv)
 
     @staticmethod
     def quantized_wire_layout(length: int, world: int,
@@ -201,7 +327,7 @@ class Executor:
         else:
             if prescale != 1.0:
                 flat = flat * _scalar(prescale, flat)
-            out = _collective("all_reduce", flat, self._backend, self._world)
+            out = self._collective("all_reduce", flat)
             if average:
                 out = (out // self._world if not out.dtype.is_floating_point
                        else out / self._world)
@@ -228,31 +354,45 @@ class Executor:
         self._record_wire("", length, tensor.dtype)
         if world == 1:
             return tensor.clone()
-        buf = _collective("all_gather", tensor.reshape(1, -1), self._backend,
-                          world)
+        buf = self._collective("all_gather", tensor.reshape(1, -1))
         while buf.shape[0] > 1:
             buf = ck.adasum_combine_pairs(buf[0::2], buf[1::2])
         return buf[0].reshape(tensor.shape)
 
-    def adasum_many(self, tensors: Sequence[torch.Tensor]) -> list:
+    def adasum_many(self, tensors: Sequence[torch.Tensor],
+                    parts: Optional[Sequence] = None) -> list:
         """:meth:`adasum` of each of ``tensors``, with the same bits: each
         tensor all-gathered on its own, in order, as :meth:`adasum` does;
         then each tree level of every tensor in one
         ``adasum_combine_pairs_many`` call (a launch per dtype on the card),
         coefficients per tensor, each level cast back to its tensor's
-        dtype."""
+        dtype. ``parts[i]`` (None: the whole tensor) cuts tensor i's flat
+        elements into members that combine each with its own coefficients
+        (a bucket of the delta flow, gathered as one buffer); its result is
+        the members' results in order, in tensor i's shape."""
         tensors = list(tensors)
+        parts = list(parts) if parts is not None else [None] * len(tensors)
         world = self._adasum_world()
         for t in tensors:
             self._record_wire("", t.numel(), t.dtype)
         if world == 1:
             return [t.clone() for t in tensors]
-        bufs = [_collective("all_gather", t.reshape(1, -1), self._backend,
-                            world) for t in tensors]
+        bufs, owner = [], []  # one [world, n] row set a member
+        for i, t in enumerate(tensors):
+            g = self._collective("all_gather", t.reshape(1, -1))
+            off = 0
+            for n in parts[i] or (t.numel(),):
+                bufs.append(g[:, off:off + n])
+                owner.append(i)
+                off += n
         for _ in range(world.bit_length() - 1):
             bufs = ck.adasum_combine_pairs_many(
                 [(buf[0::2], buf[1::2]) for buf in bufs])
-        return [buf[0].reshape(t.shape) for buf, t in zip(bufs, tensors)]
+        outs = [[] for _ in tensors]
+        for i, buf in zip(owner, bufs):
+            outs[i].append(buf[0])
+        return [(o[0] if len(o) == 1 else torch.cat(o)).reshape(t.shape)
+                for o, t in zip(outs, tensors)]
 
     def _quantized_sum(self, x: torch.Tensor, bits: int) -> torch.Tensor:
         """Quantized allreduce (sum) of the flat f32 ``x``: the reference's
@@ -275,25 +415,24 @@ class Executor:
             else:
                 quant_pack, unpack = ck.int8_quantize_pack_2d, ck.int8_unpack
             p = quant_pack(x.reshape(padded // block, block))
-            wt = _collective("all_to_all", p, self._backend, m)
+            wt = self._collective("all_to_all", p)
             q2, s2 = unpack(wt)
             red = self._dequant_sum(q2.reshape(m, nb, block),
                                     s2.reshape(m, nb, 1)).reshape(chunk)
             rp = quant_pack(red.reshape(nb, block))
-            gp = _collective("all_gather", rp, self._backend, m)
+            gp = self._collective("all_gather", rp)
             rq, rs = unpack(gp)
             out = (rq.float() * rs).reshape(padded)
         else:
             q, s = comp.quantize_blocks(x, block)
-            qt = _collective("all_to_all", q.reshape(m, chunk),
-                             self._backend, m)
-            st = _collective("all_to_all", s.reshape(m, nb), self._backend, m)
+            qt = self._collective("all_to_all", q.reshape(m, chunk))
+            st = self._collective("all_to_all", s.reshape(m, nb))
             red = self._dequant_sum(qt.reshape(m, nb, block),
                                     st[..., None]).reshape(chunk)
             rq, rs = comp.quantize_blocks(red, block)
             out = comp.dequantize_blocks(
-                _collective("all_gather", rq, self._backend, m),
-                _collective("all_gather", rs, self._backend, m), block=block)
+                self._collective("all_gather", rq),
+                self._collective("all_gather", rs), block=block)
         return out[:ln] if padded != ln else out
 
     @staticmethod

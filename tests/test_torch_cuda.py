@@ -803,3 +803,50 @@ def test_adasum_launches_from_a_fresh_thread():
     torch.cuda.synchronize()
     for g, w in zip(got["out"], want):
         assert _same_bits(g, w)
+
+
+# ------------------------------------------------ the engine on the card
+def test_engine_waits_for_the_producer_stream():
+    """A tensor produced on the current stream after a long spin of it,
+    enqueued at once: the engine's stream waits for the producer, and the
+    caller's stream waits for the result (world 1, in place and not)."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        x = torch.zeros(1 << 22, device="cuda")
+        y = torch.zeros(1 << 22, device="cuda")
+        torch.cuda._sleep(100_000_000)
+        x.fill_(3.0)
+        y.fill_(5.0)
+        h = hvd.allreduce_async(x, op=hvd.Sum, name="race")
+        hi = hvd.allreduce_async_(y, name="race_")
+        out = hvd.synchronize(h)
+        assert hvd.synchronize(hi) is y
+        total = (out.sum() + y.sum()).item()  # on the caller's stream
+        assert total == 8.0 * (1 << 22)
+        assert bool((out == 3.0).all()) and bool((y == 5.0).all())
+    finally:
+        hvd.shutdown()
+
+
+def test_adasum_launches_k4_on_the_engine_stream():
+    """Two gloo ranks on the card: an Adasum allreduce launches K4 from the
+    engine thread on its own stream, counted in ``launch_counts()``, and
+    both ranks hold the combine of the numpy oracle."""
+    import numpy as np
+
+    from horovod_tpu_torch import testing
+    from torch_engine_workers import cuda_adasum_worker
+
+    ranks = testing.run_cluster(cuda_adasum_worker, np=2, device="cuda",
+                                timeout=300)
+    xs = [np.random.RandomState(5 + r).randn(4099).astype(np.float32)
+          for r in range(2)]
+    want = testing.numpy_adasum([x.astype(np.float64) for x in xs])
+    for r in ranks:
+        assert r["launches"] == 1
+        assert r["seen"] == [(r["engine_stream"], "hvd_torch_engine")]
+        assert r["engine_stream"] != r["main_stream"]
+        np.testing.assert_allclose(r["y"], want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ranks[0]["y"], ranks[1]["y"])
