@@ -33,9 +33,25 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    each a step); measures the same step without compression and profiles
    two steps (the wire kernels' device time); and checks a small model
    against the same training on the CPU;
+2d. trains ResNet-50 at world size 1 (phase 2's batch) through the
+   compiled plane, ``spmd.make_train_step``, as a CUDA graph and eagerly,
+   on the exact and the int8 wire (the error-feedback roundtrip: one #1
+   and one #2 a replay), beside phases 2 / 2c's engine-plane images/s,
+   holds the graphed losses to the eager ones, and profiles two graphed
+   steps (the card's busy share);
 3. trains ResNet-50 at world size 2 (two gloo processes sharing the card) on
    the packed int8 wire and then the int4 wire, and checks that the
    parameters are bit-identical on both ranks;
+3c. runs the compiled plane's allreduces (the quantized ring, the tree and
+   the two-level schedule, on 2 hosts at world 4) over ResNet-50's flat
+   gradient (25,557,032 f32 values a rank, seeded) at world size 2 and 4
+   (gloo, one card) on the int8, int4 and exact wires: bit-identical ranks,
+   the error against the exact mean within the reference's bounds, the
+   bytes the hops sent equal to ``gspmd_wire_footprint``'s;
+3d. trains ResNet-50 at world size 2 (batch 32 a rank, 1 + 2 steps)
+   through ``make_train_step(compression="int8")`` with and without ZeRO-1:
+   parameters bit-identical across ranks, the ZeRO-1 state 1/2 a rank,
+   losses and final parameters within stated tolerances of each other;
 3b. drives the collective engine: at world size 1 (before phase 3, in
    the script's process) ResNet-50's 161 gradient-shaped tensors, written
    after a long spin of the current stream, go through ``allreduce_async_``
@@ -82,6 +98,12 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    steps, in the default configuration (K5, K7) and with the fused
    LayerNorm and AdamW (K5, K7, K8, K9), checks the launches per step, and
    profiles two steps;
+5e. trains GPT-2-medium at world size 1 through the compiled plane as a
+   CUDA graph, default (K5, K7) and fused (K8 x49 and K9 x1 a replay, K9
+   reading its scalars from the card), beside 5b's tokens/s and MFU;
+   checks the graphed step against the eager one for 3 steps with the lr
+   changing each step, and profiles two graphed steps; phase 5 also times
+   K8 and K5 replayed in a CUDA graph of their own call;
 5c. checks a 2-layer LM trained on the card against the same training on
    the CPU;
 5d. trains the medium widths at 2 layers on world size 2 (two gloo
@@ -97,9 +119,9 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 6b. runs ring and Ulysses attention on world size 4 (gloo, one card) over a
    ``[1, 16384, 16, 64]`` bf16 sequence, forward and backward, against
    K5/K7 on the whole sequence, with the launches per rank;
-6c. trains GPT-2-medium (24 layers) on a dp=1 x sp=4 grid over a
-   16384-token sequence for 2 steps through ``make_sp_train_step`` (96 K6
-   and 96 K7 launches a step a rank) and checks bit-identical parameters
+6c. trains GPT-2-medium widths at 8 layers on a dp=1 x sp=4 grid over a
+   16384-token sequence for 2 steps through ``make_sp_train_step`` (32 K6
+   and 32 K7 launches a step a rank) and checks bit-identical parameters
    and agreement with one world-1 step on the whole sequence, whose
    attention is PyTorch's own; times a ring hop, the gradient allreduce
    and the step's gradient mean per tensor and in 25 MiB buckets;
@@ -122,9 +144,9 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    p's chunk against the f64 dense sum, the unfused reference (two faulted
    rings, one missing a partial and one adding in float8, must fail the
    same bound), 4 K10 launches a call a rank, and the time of a call;
-7c. trains GPT-2-medium (24 layers) on a dp=1 x tp=4 grid, global batch 8
-   x 1024, for 2 steps through ``make_tp_train_step`` (24 K5 and 24 K7
-   launches a step a rank, on a rank's 4 heads) and checks replicated
+7c. trains GPT-2-medium widths at 8 layers on a dp=1 x tp=4 grid, global
+   batch 8 x 1024, for 2 steps through ``make_tp_train_step`` (8 K5 and 8
+   K7 launches a step a rank, on a rank's 4 heads) and checks replicated
    parameters bit-identical on all ranks and agreement with one world-1
    step, whose attention is PyTorch's own; peak memory a rank;
 7d. does the same for the 3D hybrid on a dp=2 x tp=2 x sp=2 grid (8
@@ -135,8 +157,12 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 ``--fault skip-hop`` or ``--fault shift-k-off`` breaks ring attention on
 purpose and runs phases 6c and 6d only; ``--fault drop-tp-reduce`` makes
 block 0's row-parallel mlp_out skip its sum over tp and runs phases 7c and
-7d only. Each shows that the phases' agreement checks fail a wrong program:
-it exits 0 when both phases fail them.
+7d only; ``--fault flip-byte`` flips one byte of one hop of every case of
+phase 3c and runs that phase only; ``--fault zero1`` runs phase 3d's
+ZeRO-1 step with its gradient not averaged, then with its optimizer step
+skipped. Each shows that the phases' agreement
+checks fail a wrong program: it exits 0 when every phase (or case) fails
+them.
 
 Exits non-zero, with no result line, when a phase fails or no CUDA device
 is present. The last line of standard output is
@@ -146,6 +172,7 @@ the full report (every phase's numbers) to PATH as JSON.
 """
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -203,10 +230,11 @@ MEMORY_RATE = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
                ("H100", 3.35e12))
 F32_RATE = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 CARD = ""  # the nvidia-smi name and power limit line, set by main()
+T0 = time.perf_counter()  # the log's clock: seconds since this process began
 
 
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -1115,6 +1143,14 @@ def phase_lm_kernels(rate: float) -> dict:
         f"{ln['library_ms']:.4f} ms: {r['vs_library']:.3f}x; the wrapper "
         f"alone {ln['ms'] / ln['library_ms']:.3f}x on {CARD} (timed in "
         f"{r['seconds']:.2f} s)")
+    # K8 and K5 as a CUDA graph of their own call replays them: the call
+    # without its host part (R2; the compiled step replays them so)
+    for kname in ("layer_norm_fwd", "flash_attention_fwd"):
+        r = out[kname]["graph_replay"] = {
+            "ms": graph_replay_ms(timed[kname][0], 20)}
+        log(f"  {kname} replayed in a CUDA graph of its own call: "
+            f"{r['ms']:.4f} ms against the call's {out[kname]['ms']:.4f} ms "
+            f"(device {out[kname]['device_ms']}) on {CARD}")
     out["sass"] = sass
     out["checks"] = checks
     return out
@@ -1442,6 +1478,558 @@ def phase_small_agreement() -> dict:
     if not ok:
         raise AssertionError("card and CPU disagree on the small model")
     return {"loss_rel": loss_rel, "param_abs": param_abs}
+
+
+# ---------------------------------------- the compiled plane (phases 2d-3d)
+# the compiled plane's step against the eager step: losses to COMPILED_LOSS
+# relative; 99.9% of the parameter elements within COMPILED_PARAM and every
+# one within 2 * sum(lr) (what updates of opposite sign could open where an
+# atomic sum's order flips a gradient's last bit)
+COMPILED_LOSS = 1e-4
+COMPILED_PARAM = 1e-6
+LM_LRS = (3e-4, 1e-4, 5e-4)  # the lr of each of the agreement's steps
+# phase 3c: the error of the mean of N(0, 1) rows, the reference's bounds
+# (tests/test_algo.py:114); the exact wire within ALGO_EXACT_TOL
+ALGO_TOL = {"int8": 0.05, "int4": 0.6}
+ALGO_EXACT_TOL = 1e-5
+# phase 3d: ZeRO-1's losses against the replicated int8 step's, relative;
+# its final parameters against the replicated step's, the largest |diff|
+# over the largest |update| the replicated step made (the two quantize
+# different values on the wire: the gradient, or ZeRO-1's update)
+ZERO1_LOSS_REL = 1e-4
+ZERO1_PARAM_GAP = 0.1
+ZERO1_FAULTS = ("unaveraged", "no-step")
+# phase 2d's graphed ResNet-50 losses against its eager ones (bf16 autocast;
+# cuDNN may pick other algorithms for the two)
+RESNET_GRAPH_LOSS = 1e-3
+
+
+def release() -> None:
+    """Free the card's memory of dropped trainers: a compiled step and its
+    trainer refer to each other (the loss function is a bound method), so
+    their CUDA graph's pool goes only when the cycle is collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  released: {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+
+
+def busy_share(step, n: int = 2) -> dict:
+    """Device time over the wall of ``n`` profiled steps (after one warm
+    step): the share of the profiled wall the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = _device_ms(prof)
+    total = sum(dev.values())
+    return {"wall_ms": wall, "device_ms": total,
+            "busy_pct": 100 * total / wall if wall else None,
+            "top": sorted(dev.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def timed_steps(tr, warmup: int, steps: int):
+    """(losses, seconds of the timed steps) of a trainer's steps."""
+    losses = [tr.step() for _ in range(warmup)]
+    tr.sync()
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(steps)]
+    tr.sync()
+    return [float(v) for v in losses], time.perf_counter() - t0
+
+
+def phase_compiled_resnet(batch: int, engine: dict) -> dict:
+    """Phase 2d: ResNet-50 at world 1 (phase 2's batch, 224x224, bf16
+    autocast, channels_last, SGD 0.01 momentum 0.9) through
+    ``make_train_step``, graphed and eager, on the exact and the int8 wire
+    (the error-feedback roundtrip: one #1 and one #2 a replay), against
+    phases 2 / 2c's ``synthetic_train`` on the engine's plane in this call;
+    the card's busy share over two profiled graphed steps."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import ResNetTrainer
+
+    steps, warmup = 5, 2
+    want = {"none": {}, "int8": {"int8_quantize_2d": 1,
+                                 "int8_dequantize_2d": 1}}
+    out, ok = {}, True
+    t0 = time.perf_counter()
+    for wire in ("none", "int8"):
+        for graph in (True, False):
+            ck.reset_launch_counts()
+            tr = ResNetTrainer("ResNet50", batch=batch, image=224,
+                               compression=wire, device="cuda:0",
+                               plane="compiled", graph=graph)
+            losses, secs = timed_steps(tr, warmup, steps)
+            ts = tr.train_step
+            r = {"losses": losses, "images_per_sec": batch * steps / secs,
+                 "graphed": ts.graphed, "counts": ck.launch_counts(),
+                 "launches_per_replay": ts.launches_per_replay}
+            if graph:
+                r["profile"] = busy_share(tr.step)
+            label = f"{wire} {'graphed' if graph else 'eager'}"
+            out[label] = r
+            good = (all(math.isfinite(v) for v in losses)
+                    and ts.graphed == graph
+                    and (not graph
+                         or ts.launches_per_replay == want[wire]))
+            if wire == "int8":  # ran on the card: a launch of each a step
+                good = good and all(
+                    r["counts"][k] == warmup + steps + (2 if graph else 0)
+                    for k in want["int8"])
+            ok = ok and good
+            log(f"phase 2d: ResNet-50 world 1 batch {batch} compiled plane "
+                f"({label}): {r['images_per_sec']:.1f} images/s (the "
+                f"engine's plane in this call: "
+                f"{engine[wire]:.1f}), per replay "
+                f"{ts.launches_per_replay}, launches {({k: v for k, v in r['counts'].items() if v})}"
+                f", losses {[round(v, 4) for v in losses]}"
+                + (f", busy {r['profile']['busy_pct']:.1f}% of "
+                   f"{r['profile']['wall_ms']:.1f} ms over 2 profiled "
+                   f"steps" if graph else "") + f" on {CARD}: ok={good}")
+            del tr
+            release()
+        lg, le = (out[f"{wire} {m}"]["losses"] for m in ("graphed", "eager"))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, le))
+        out[f"{wire} loss_rel"] = rel
+        ok = ok and rel <= RESNET_GRAPH_LOSS
+        log(f"phase 2d: {wire}: graphed against eager losses, rel {rel:.3e} "
+            f"(<= {RESNET_GRAPH_LOSS})")
+    out["engine_images_per_sec"] = engine
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 2d took {out['seconds']:.1f} s")
+    if not ok:
+        raise AssertionError("phase 2d, the compiled ResNet-50 step, failed "
+                             "its checks")
+    return out
+
+
+def lm_agreement(fused: bool) -> dict:
+    """GPT-2-medium's compiled step, graphed against eager, 3 steps from
+    the same weights with the lr set before each (``LM_LRS``)."""
+    from horovod_tpu_torch.train import LMTrainer
+
+    runs = {}
+    for graph in (False, True):
+        tr = LMTrainer("medium", fused_ln=fused, fused_opt=fused,
+                       device="cuda:0", compiled=True, graph=graph)
+        losses = []
+        for lr in LM_LRS:
+            tr.opt.param_groups[0]["lr"] = lr
+            losses.append(float(tr.step()))
+        tr.sync()
+        runs[graph] = (losses, [p.detach().float().clone()
+                                for p in tr.net.parameters()])
+        if graph:
+            graphed = tr
+        else:
+            del tr
+            release()
+    (le, pe), (lg, pg) = runs[False], runs[True]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pe, pg)])
+    share = float((diffs <= COMPILED_PARAM).float().mean())
+    worst = float(diffs.max())
+    bits = all(torch.equal(a, b) for a, b in zip(pe, pg))
+    ok = (loss_rel <= COMPILED_LOSS and share >= 0.999
+          and worst <= 2 * sum(LM_LRS))
+    return {"graphed_trainer": graphed, "loss_rel": loss_rel,
+            "share": share, "param_max": worst, "bit_equal": bits,
+            "losses": {"eager": le, "graphed": lg}, "ok": ok}
+
+
+def phase_compiled_lm(engine: dict) -> dict:
+    """Phase 5e: GPT-2-medium at world 1 through ``make_train_step`` as a
+    CUDA graph, default (K5, K7; AdamW fused and capturable) and
+    fused_ln + fused_opt (K8 x49 and K9 x1 a replay, K9 from device
+    scalars), against phase 5b's engine-plane numbers of this call;
+    graphed against eager for 3 steps with the lr changing each step
+    (fused path); the busy share of two profiled graphed steps."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import LMTrainer, peak_bf16_flops
+
+    steps, warmup = 5, 2
+    peak = peak_bf16_flops(torch.cuda.get_device_name(0))
+    out, ok = {}, True
+    for label, fused in (("fused_ln+fused_opt", True), ("default", False)):
+        t0 = time.perf_counter()
+        ck.reset_launch_counts()
+        if fused:
+            agree = lm_agreement(True)
+            tr = agree.pop("graphed_trainer")
+        else:
+            agree = None
+            tr = LMTrainer("medium", device="cuda:0", compiled=True,
+                           graph=True)
+        losses, secs = timed_steps(tr, warmup, steps)
+        ts = tr.train_step
+        tok = tr.batch * tr.seq * steps / secs
+        r = {"losses": losses, "tokens_per_sec": tok,
+             "step_ms": 1e3 * secs / steps,
+             "mfu_pct": 100 * 6 * tr.n_nonemb * tok / peak,
+             "launches_per_replay": ts.launches_per_replay,
+             "counts": ck.launch_counts(), "agreement": agree,
+             "graphed": ts.graphed}
+        if fused:
+            r["profile"] = busy_share(tr.step)
+        want = {k: v for k, v in lm_per_step(fused, MEDIUM["layers"]).items()
+                if v}
+        good = (ts.graphed and ts.launches_per_replay == want
+                and all(math.isfinite(v) for v in losses)
+                and (agree is None or agree["ok"]))
+        ok = ok and good
+        r["seconds"] = time.perf_counter() - t0
+        log(f"phase 5e: GPT-2-medium world 1 compiled plane, graphed "
+            f"({label}): {tok:.1f} tokens/s, {r['step_ms']:.2f} ms a step, "
+            f"MFU {r['mfu_pct']:.2f}% (the engine's plane in this call: "
+            f"{engine[label]['tokens_per_sec']:.1f} tokens/s, "
+            f"{engine[label]['step_ms']:.2f} ms, MFU "
+            f"{engine[label]['mfu_pct']:.2f}%), per replay "
+            f"{ts.launches_per_replay} (want {want})"
+            + (f", busy {r['profile']['busy_pct']:.1f}% of "
+               f"{r['profile']['wall_ms']:.1f} ms over 2 profiled steps"
+               if fused else "")
+            + (f"; graphed vs eager, 3 steps at lr {LM_LRS}: loss rel "
+               f"{agree['loss_rel']:.3e} (<= {COMPILED_LOSS}), params within "
+               f"{COMPILED_PARAM} {agree['share']:.6f} (>= 0.999), max "
+               f"{agree['param_max']:.3e} (<= {2 * sum(LM_LRS):.1e}), bit-"
+               f"equal {agree['bit_equal']}" if agree else "")
+            + f"; {r['seconds']:.1f} s on {CARD}: ok={good}")
+        out[label] = r
+        del tr
+        release()
+    if not ok:
+        raise AssertionError("phase 5e, the compiled LM step, failed its "
+                             "checks")
+    return out
+
+
+def graph_replay_ms(fn, iters: int = 20) -> float:
+    """The time of one call of ``fn`` replayed as a CUDA graph of its own
+    (warmed on a side stream first): what is left of a call once the
+    host's part is gone. The capture's launch ticks are taken back."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = ck.launch_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    after = ck.launch_counts()
+    ck.add_launches({k: before[k] - after[k] for k in after})
+    return cuda_ms(g.replay, iters)
+
+
+def resnet50_total() -> int:
+    from horovod_tpu_torch.models import resnet
+
+    return sum(p.numel() for p in resnet.ResNet50().parameters())
+
+
+def flip_hop(spmd, index: int) -> None:
+    """Make the ``index``-th hop this process sends from now carry one
+    byte flipped (byte 3: an int8 payload value, or an f32's sign and
+    exponent): a wrong wire on purpose."""
+    exchange = spmd._exchange
+    seen = [0]
+
+    def faulty(t, to_rank, from_rank):
+        if seen[0] == index:
+            t = t.contiguous().clone()
+            b = t.view(-1).view(torch.uint8)
+            b[min(3, b.numel() - 1)] ^= 0xFF
+        seen[0] += 1
+        return exchange(t, to_rank, from_rank)
+
+    spmd._exchange = faulty
+
+
+def algo_card_worker(total: int, fault: bool) -> dict:
+    """One rank of phase 3c: ResNet-50's flat gradient (``total`` f32
+    values from N(0, 1), seeded by rank) through the three allreduces on
+    int8, int4 and the exact wire (the exact ring as the ring's raw hops);
+    each result's digest, its error against the f64 mean of every rank's
+    row, and the bytes this rank's hops sent. ``fault``: each case again
+    with one byte of this rank's last hop flipped (rank 0)."""
+    import hashlib
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    dev, r, world = hvd.device(), hvd.rank(), hvd.size()
+
+    def row(k):
+        gen = torch.Generator(dev).manual_seed(1000 + k)
+        return torch.randn(total, generator=gen, device=dev)
+
+    exact = sum(row(k).double() for k in range(world)) / world
+    x = row(r)
+    fns = {"ring": spmd.quantized_allreduce,
+           "tree": spmd.quantized_allreduce_tree,
+           "hier": spmd.quantized_allreduce_hier}
+    ck.reset_launch_counts()
+
+    def run(algo, wire):
+        if algo == "ring" and wire == "off":
+            c = spmd.quantized_reduce_scatter(x, "off", BLOCK)
+            return spmd.quantized_all_gather(c, "off", BLOCK)[:total] / world
+        return fns[algo](x, hvd.Average, wire, BLOCK)
+
+    if world < 4:  # no (host, chip) factorization: hier is the ring
+        del fns["hier"]
+    exchange = spmd._exchange
+    out = {"cases": {}, "backend": hvd.backend()}
+    for algo in fns:
+        for wire in ("int8", "int4", "off"):
+            t0 = time.perf_counter()
+            spmd.reset_hop_bytes()
+            y = run(algo, wire)
+            torch.cuda.synchronize(dev)
+            case = {"seconds": time.perf_counter() - t0,
+                    "bytes": spmd.hop_bytes(),
+                    "digest": hashlib.sha256(
+                        y.cpu().numpy().tobytes()).hexdigest(),
+                    "err": float((y.double() - exact).abs().max())}
+            if fault:
+                hops = spmd.hops_sent()
+                if r == 0:
+                    flip_hop(spmd, hops - 1)
+                y = run(algo, wire)
+                spmd._exchange = exchange
+                case.update(
+                    fault_digest=hashlib.sha256(
+                        y.cpu().numpy().tobytes()).hexdigest(),
+                    fault_err=float((y.double() - exact).abs().max()))
+            out["cases"][f"{algo}/{wire}"] = case
+    out["counts"] = ck.launch_counts()
+    return out
+
+
+def algo_checks(world: int, ranks: list, total: int, faulted: bool) -> dict:
+    """Phase 3c's verdicts a case: ranks bit-identical, the error within
+    the bound, the hops' bytes the catalog's (the tree at world 4: the
+    ring's row, 3/4 of the catalog's tree row)."""
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.ops import compression as comp
+
+    verdicts = {}
+    for case in ranks[0]["cases"]:
+        algo, wire = case.split("/")
+        mode = "none" if wire == "off" else wire
+        cs = [r["cases"][case] for r in ranks]
+        pre = "fault_" if faulted else ""
+        same = len({c[pre + "digest"] for c in cs}) == 1
+        bound = ALGO_TOL.get(wire, ALGO_EXACT_TOL)
+        accurate = max(c[pre + "err"] for c in cs) <= bound
+        hosts = spmd.mesh_hosts(world) if algo == "hier" else None
+        row = comp.gspmd_wire_footprint(total, mode, world, BLOCK,
+                                        algorithm=algo, hosts=hosts)
+        if algo == "tree" and world > 2:
+            row = comp.gspmd_wire_footprint(total, mode, world, BLOCK)
+        sent = {c["bytes"] for c in cs}
+        verdicts[case] = {"same": same, "accurate": accurate,
+                          "bytes": sent == {row}, "sent": sorted(sent),
+                          "catalog": row,
+                          "err": max(c[pre + "err"] for c in cs),
+                          "seconds": max(c["seconds"] for c in cs)}
+    return verdicts
+
+
+def phase_algorithms(fault: bool = False) -> dict:
+    """Phase 3c: the compiled plane's allreduces at world 2 (the ring and
+    the tree) and 4 (and hier on 2 hosts), gloo processes sharing the
+    card, over
+    ResNet-50's flat gradient on int8, int4 and the exact wire:
+    bit-identical ranks, the error against the exact mean within the
+    reference's bounds, the bytes the hops sent equal to the catalog's.
+    ``fault``: with a byte of one hop flipped, every case's checks must
+    fail."""
+    from horovod_tpu_torch import testing
+
+    total = resnet50_total()
+    out, ok = {}, True
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        ranks = testing.run_cluster(algo_card_worker, np=world,
+                                    device="cuda", args=(total, fault),
+                                    timeout=900)
+        v = algo_checks(world, ranks, total, False)
+        good = (all(x["same"] and x["accurate"] and x["bytes"]
+                    for x in v.values())
+                and all(r["backend"] == "gloo" for r in ranks))
+        res = {"verdicts": v, "seconds": time.perf_counter() - t0,
+               "counts": [r["counts"] for r in ranks]}
+        if fault:
+            res["fault_verdicts"] = fv = algo_checks(world, ranks, total,
+                                                     True)
+            res["caught"] = {k: not (x["same"] and x["accurate"])
+                             for k, x in fv.items()}
+        ok = ok and good
+        out[world] = res
+        log(f"phase 3c: world {world} (gloo, one card), {total} f32 values "
+            f"a rank: " + "; ".join(
+                f"{k}: same {x['same']}, err {x['err']:.3e}, bytes "
+                f"{x['sent']} / catalog {x['catalog']}, {x['seconds']:.2f} s"
+                for k, x in v.items())
+            + f"; {res['seconds']:.1f} s: ok={good}")
+    if not ok and not fault:
+        raise AssertionError("phase 3c, the compiled plane's allreduces, "
+                             "failed its checks")
+    return out
+
+
+def flat_params(net) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1).float()
+                      for p in net.parameters()])
+
+
+def plant_zero1_fault(tr, fault: str):
+    """A wrong ZeRO-1 step on purpose, one every rank makes alike (so the
+    ranks stay bit-identical): the reduce-scattered gradient not averaged
+    over the ranks (``unaveraged``) or the inner optimizer's step skipped
+    (``no-step``). Returns the function that undoes it."""
+    from horovod_tpu_torch import spmd
+
+    if fault == "unaveraged":
+        mean = spmd._mean
+        spmd._mean = lambda flat, m: flat
+
+        def undo():
+            spmd._mean = mean
+    else:
+        tr.train_step.inner.step = lambda *a, **k: None
+
+        def undo():
+            del tr.train_step.inner.step
+    return undo
+
+
+def zero1_card_worker(batch: int, steps: int, faults=()) -> dict:
+    """One rank of phase 3d: ResNet-50 through ``make_train_step`` on the
+    int8 wire, replicated and with ZeRO-1 (with ``faults``: a ZeRO-1 run
+    with each planted fault instead), 1 + ``steps`` steps each; each
+    run's final parameters against the replicated run's: the largest
+    |difference| over the largest |update| the replicated run made."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import ResNetTrainer, params_sha256
+
+    out = {"backend": hvd.backend()}
+    runs = [("replicated", False, None)] + (
+        [(f, True, f) for f in faults] if faults else [("zero1", True, None)])
+    ref = update = None
+    for label, z, fault in runs:
+        ck.reset_launch_counts()
+        tr = ResNetTrainer("ResNet50", batch=batch, image=224,
+                           compression="int8", plane="compiled", zero1=z)
+        start = flat_params(tr.net)
+        undo = plant_zero1_fault(tr, fault) if fault else None
+        losses, secs = timed_steps(tr, 1, steps)
+        if undo:
+            undo()
+        end = flat_params(tr.net)
+        if ref is None:
+            ref, update = end, float((end - start).abs().max())
+        step = tr.train_step
+        out[label] = {"losses": losses, "seconds": secs,
+                      "sha": params_sha256(tr.net), "graphed": step.graphed,
+                      "state": step.zero1_state_numel() if z else None,
+                      "total": sum(p.numel() for p in tr.net.parameters()),
+                      "gap": float((end - ref).abs().max()) / update,
+                      "update": update, "counts": ck.launch_counts()}
+        del tr, step, start, end
+        release()
+    return out
+
+
+def phase_zero1(faults=()) -> dict:
+    """Phase 3d: the quantized step at world 2 (two gloo processes sharing
+    the card), ResNet-50 batch 32 a rank, 1 + 2 steps, with and without
+    ZeRO-1: parameters bit-identical across ranks, the ZeRO-1 state 1/2 a
+    rank, losses finite and within ZERO1_LOSS_REL of the replicated
+    step's, final parameters within ZERO1_PARAM_GAP of the replicated
+    step's update. ``faults``: ZeRO-1 runs with those planted faults
+    instead; each must fail the agreement (losses or parameters)."""
+    from horovod_tpu_torch import testing
+    from horovod_tpu_torch.optim import zero
+
+    t0 = time.perf_counter()
+    ranks = testing.run_cluster(zero1_card_worker, np=2, device="cuda",
+                                args=(32, 2, tuple(faults)), timeout=900)
+    labels = list(faults) or ["zero1"]
+    total = ranks[0]["replicated"]["total"]
+    chunk = zero.ring_chunk(total, 2, BLOCK)
+    rep = ranks[0]["replicated"]["losses"]
+    res = {"ranks": ranks, "chunk": chunk, "total": total, "runs": {}}
+    ok = (ranks[0]["replicated"]["sha"] == ranks[1]["replicated"]["sha"]
+          and all(r["backend"] == "gloo" for r in ranks)
+          and not any(r["replicated"]["graphed"] for r in ranks))
+    for label in labels:
+        rel = max(abs(a - b) / abs(a)
+                  for a, b in zip(rep, ranks[0][label]["losses"]))
+        gap = max(r[label]["gap"] for r in ranks)
+        v = {"same": ranks[0][label]["sha"] == ranks[1][label]["sha"],
+             "state": all(r[label]["state"] == chunk for r in ranks),
+             "finite": all(math.isfinite(x) for r in ranks for z in
+                           ("replicated", label) for x in r[z]["losses"]),
+             "eager": not any(r[label]["graphed"] for r in ranks),
+             "losses": rel <= ZERO1_LOSS_REL,
+             "parameters": gap <= ZERO1_PARAM_GAP,
+             "loss_rel": rel, "gap": gap}
+        v["caught"] = not (v["losses"] and v["parameters"])
+        res["runs"][label] = v
+        ok = ok and all(v[k] for k in ("same", "state", "finite", "eager",
+                                       "losses", "parameters"))
+        log(f"phase 3d{f' with fault {label}' if faults else ''}: world 2 "
+            f"(gloo, one card) ResNet-50 batch 32/rank int8 compiled step: "
+            f"params bit-identical (replicated, ZeRO-1) "
+            f"{ranks[0]['replicated']['sha'] == ranks[1]['replicated']['sha']}"
+            f", {v['same']}; ZeRO-1 state {ranks[0][label]['state']} "
+            f"elements a rank of {total} parameters (chunk {chunk}); losses "
+            f"{[round(x, 4) for x in rep]} / "
+            f"{[round(x, 4) for x in ranks[0][label]['losses']]}, rel "
+            f"{rel:.3e} (<= {ZERO1_LOSS_REL:g}); final parameters against "
+            f"the replicated run's, max |diff| over its max |update| "
+            f"{ranks[0]['replicated']['update']:.4e}: {gap:.3e} (<= "
+            f"{ZERO1_PARAM_GAP:g}); ok={ok}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 3d took {res['seconds']:.1f} s")
+    if not ok and not faults:
+        raise AssertionError("phase 3d, the quantized ZeRO-1 step, failed "
+                             "its checks")
+    return res
+
+
+def zero1_fault_check() -> int:
+    """``--fault zero1``: phase 3d with each planted ZeRO-1 fault; 0 when
+    every one fails the agreement with the replicated step."""
+    out = phase_zero1(ZERO1_FAULTS)
+    caught = {k: v["caught"] for k, v in out["runs"].items()}
+    print(json.dumps({"fault": "zero1", "caught": caught}), flush=True)
+    return 0 if all(caught.values()) else 1
+
+
+def algo_fault_check() -> int:
+    """``--fault flip-byte``: phase 3c with one byte of one hop flipped a
+    case; 0 when every case's agreement check fails."""
+    out = phase_algorithms(fault=True)
+    caught = {f"{w}/{k}": v for w, r in out.items()
+              for k, v in r["caught"].items()}
+    print(json.dumps({"fault": "flip-byte", "caught": caught}), flush=True)
+    return 0 if all(caught.values()) else 1
 
 
 # --------------------------------------------------------------- phase 3
@@ -2880,10 +3468,12 @@ def phase_tp_train(label: str, dp: int, tp: int, sp: int, layers: int,
 
 
 # the (dp, sp) runs of phases 6c and 6d, the (dp, tp, sp) runs of 7c and
-# 7d: (dp, [tp,] sp, layers, global batch, sequence)
-SP_RUNS = {"6c": (1, RING["sp"], MEDIUM["layers"], 1, RING["seq"]),
+# 7d: (dp, [tp,] sp, layers, global batch, sequence); 6c and 7c at
+# GPT-2-medium's widths cut to LONG_LAYERS of its 24 layers
+LONG_LAYERS = 8
+SP_RUNS = {"6c": (1, RING["sp"], LONG_LAYERS, 1, RING["seq"]),
            "6d": (2, 2, 2, 2, RING["seq"] // RING["sp"])}
-TP_RUNS = {"7c": (1, TP["tp"], 1, MEDIUM["layers"], TP["batch"],
+TP_RUNS = {"7c": (1, TP["tp"], 1, LONG_LAYERS, TP["batch"],
                   MEDIUM["seq"]),
            "7d": (HYBRID["dp"], HYBRID["tp"], HYBRID["sp"], HYBRID["layers"],
                   HYBRID["batch"], HYBRID["seq"])}
@@ -2909,12 +3499,16 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH", default=None,
                         help="also write the full report to PATH as JSON")
-    parser.add_argument("--fault", choices=sorted(FAULTS), default=None,
+    parser.add_argument("--fault",
+                        choices=sorted(FAULTS) + ["flip-byte", "zero1"],
+                        default=None,
                         help="break ring attention (skip-hop, shift-k-off: "
-                        "phases 6c and 6d only) or a row-parallel reduce "
-                        "(drop-tp-reduce: phases 7c and 7d only) on purpose; "
-                        "exits 0 when each phase's agreement with the "
-                        "world-1 step fails")
+                        "phases 6c and 6d only), a row-parallel reduce "
+                        "(drop-tp-reduce: phases 7c and 7d only) or one "
+                        "byte of one hop of the compiled plane's allreduces "
+                        "(flip-byte: phase 3c only), or plant wrong ZeRO-1 "
+                        "steps (zero1: phase 3d only) on purpose; exits 0 "
+                        "when each phase's agreement check fails")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2941,6 +3535,10 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for n in LIBRARIES:
         print(_build.compile_log(n), file=sys.stderr, flush=True)
+    if args.fault == "flip-byte":
+        return algo_fault_check()
+    if args.fault == "zero1":
+        return zero1_fault_check()
     if args.fault:
         return fault_check(args.fault)
 
@@ -2954,12 +3552,18 @@ def main(argv=None) -> int:
     world1 = phase_world1()
     breakdown = phase_breakdown(world1["batch"])
     small = phase_small_agreement()
+    compiled1 = phase_compiled_resnet(world1["batch"], {
+        "int8": world1["images_per_sec"],
+        "none": breakdown["plain_images_per_sec"]})
     lm1 = phase_lm_world1()
     lm_profile = phase_lm_profile()
+    lm_compiled = phase_compiled_lm(lm1)
     lm_small = phase_lm_small_agreement()
     engine1 = phase_engine_world1()
     hvd.shutdown()
     world2 = phase_world2()
+    algorithms = phase_algorithms()
+    zero1 = phase_zero1()
     engine2 = phase_engine_world2()
     adasum2 = phase_adasum_world2()
     adasum4 = phase_adasum_world4()
@@ -2982,6 +3586,12 @@ def main(argv=None) -> int:
 
     # each main-path run counted its launches from 0
     runs = ([world1["counts"]]
+            + [r["counts"] for r in compiled1.values()
+               if isinstance(r, dict) and "counts" in r]
+            + [r["counts"] for r in lm_compiled.values()]
+            + [c for r in algorithms.values() for c in r["counts"]]
+            + [r[z]["counts"] for r in zero1["ranks"]
+               for z in ("replicated", "zero1")]
             + [r[m]["counts"] for r in world2["ranks"]
                for m in ("int8", "int4")]
             + [run["counts"] for r in engine2["ranks"]
@@ -3003,6 +3613,8 @@ def main(argv=None) -> int:
     report = {"card": CARD, "kernels": list(kernels.values()),
               "world1": world1, "breakdown": breakdown, "small": small,
               "world2": world2, "engine_world1": engine1,
+              "compiled_resnet": compiled1, "compiled_lm": lm_compiled,
+              "algorithms": algorithms, "zero1": zero1,
               "engine_world2": engine2, "adasum_world2": adasum2,
               "attention_sass": attention_sass,
               "adasum_world4": adasum4, "lm_checks": lm_checks,

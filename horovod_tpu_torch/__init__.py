@@ -7,8 +7,10 @@ averaged by an allreduce (optionally on the int8 / int4 quantized wire), and
 the local updates with the Adasum rule. The collectives go through a
 background engine (``runtime/engine.py``) with async handles
 (``allreduce_async``, ``poll``, ``synchronize``). The kernels are CUDA C++
-in ``csrc/``. ``spmd`` holds the in-step primitives. Imports ``torch`` and
-never ``jax`` or ``horovod_tpu``.
+in ``csrc/``. ``spmd`` holds the compiled data-parallel plane
+(``spmd.make_train_step``: one CUDA graph a step at world 1, the quantized
+ring / tree / two-level allreduces, ZeRO-1) and the in-step primitives.
+Imports ``torch`` and never ``jax`` or ``horovod_tpu``.
 
     import horovod_tpu_torch as hvd
     hvd.init()                       # this rank's card; init(device="cpu")

@@ -136,6 +136,109 @@ def wire_footprint(num_elements: int, mode: str,
     raise ValueError(f"unknown compression mode {mode!r}")
 
 
+# ------------------------------------------- the compiled plane's catalogs
+def _gspmd_seg_bytes(elems: int, mode: str, block: int | None) -> int:
+    """Bytes one exchanged segment of ``elems`` f32 elements costs on the
+    compiled plane's wire: packed rows for int8 / int4, raw elements
+    otherwise."""
+    per_elem = {"none": 4, "fp32": 4, "fp16": 2, "bf16": 2}.get(mode)
+    if per_elem is not None:
+        return elems * per_elem
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown GSPMD wire mode {mode!r}")
+    block = block or block_size()
+    rows = -(-elems // block)
+    row_bytes = (block if mode == "int8" else block // 2) + 4
+    return rows * row_bytes
+
+
+def gspmd_wire_footprint(num_elements: int, mode: str, world: int,
+                         block: int | None = None,
+                         algorithm: str = "ring",
+                         hosts: int | None = None) -> int:
+    """Bytes ONE rank puts on the wire for one allreduce of the compiled
+    plane (``spmd.quantized_allreduce`` and its algorithms).
+
+    Quantized modes move packed rows (``[block | 4 scale bytes]`` for int8,
+    ``[block/2 | 4]`` for int4) over chunks rounded up to whole blocks;
+    ``none`` / ``fp32`` (``bf16`` / ``fp16``) count the same schedule with
+    raw 4-byte (2-byte) elements. World 1 moves nothing.
+
+    * ``ring``: reduce-scatter + all-gather, ``world - 1`` hops of one
+      per-rank chunk each (the ZeRO-1 step moves the same).
+    * ``tree``: ``2 * log2(world)`` exchanges of a payload half, as the
+      reference counts it; a non-power-of-2 world rides the ring.
+    * ``hier``: intra-host reduce-scatter + all-gather over ``world //
+      hosts`` chips plus the cross-host phase on the owned chunk; ``hosts``
+      must be a proper divisor of ``world`` or the ring row applies.
+    """
+    if world <= 1:
+        return 0
+    if algorithm == "tree" and world & (world - 1) == 0:
+        half = -(-num_elements // 2)
+        rounds = world.bit_length() - 1
+        return 2 * rounds * _gspmd_seg_bytes(half, mode, block)
+    if (algorithm == "hier" and hosts and 1 < hosts < world
+            and world % hosts == 0):
+        chips = world // hosts
+        chunk = -(-num_elements // chips)
+        sub = -(-chunk // hosts)
+        intra = 2 * (chips - 1) * _gspmd_seg_bytes(chunk, mode, block)
+        cross = 2 * (hosts - 1) * _gspmd_seg_bytes(sub, mode, block)
+        return intra + cross
+    return (2 * (world - 1)
+            * _gspmd_seg_bytes(-(-num_elements // world), mode, block))
+
+
+def gspmd_cross_host_footprint(num_elements: int, mode: str, world: int,
+                               hosts: int, block: int | None = None,
+                               algorithm: str = "ring") -> int:
+    """Bytes crossing a host boundary, summed over all ranks, for one
+    allreduce under a host-major ``(hosts, chips)`` layout. ``ring``: the
+    flat ring's ``hosts`` boundary edges each carry ``world - 1`` chunk
+    segments a phase; ``hier``: only the cross-host phase's rows; ``tree``:
+    the exchanges at distances ``>= chips``."""
+    if world <= 1 or hosts <= 1 or world % hosts:
+        return 0
+    chips = world // hosts
+    if algorithm == "hier":
+        chunk = -(-num_elements // chips)
+        sub = -(-chunk // hosts)
+        return (2 * (hosts - 1) * chips * hosts
+                * _gspmd_seg_bytes(sub, mode, block))
+    if algorithm == "tree" and world & (world - 1) == 0:
+        total = 0
+        seg = -(-num_elements // 2)
+        d = world >> 1
+        while d >= 1:
+            if d >= chips:  # partner p ^ d sits on another host
+                total += 2 * world * _gspmd_seg_bytes(seg, mode, block)
+            seg = -(-seg // 2)
+            d >>= 1
+        return total
+    chunk = -(-num_elements // world)
+    return 2 * (world - 1) * hosts * _gspmd_seg_bytes(chunk, mode, block)
+
+
+def moe_wire_footprint(per_peer_elements: int, mode: str, world: int,
+                       block: int | None = None) -> int:
+    """Bytes ONE device puts on the wire for one capacity-dispatch MoE
+    round: the dispatch and the combine all_to_all, each moving ``world -
+    1`` remote payloads of ``per_peer_elements`` f32 elements, each padded
+    to whole blocks on a quantized wire. World 1 moves nothing."""
+    if world <= 1:
+        return 0
+    per_elem = {"none": 4, "fp32": 4, "fp16": 2, "bf16": 2}.get(mode)
+    if per_elem is not None:
+        return 2 * (world - 1) * per_peer_elements * per_elem
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"unknown MoE wire mode {mode!r}")
+    block = block or block_size()
+    rows = -(-per_peer_elements // block)
+    row_bytes = (block if mode == "int8" else block // 2) + 4
+    return 2 * (world - 1) * rows * row_bytes
+
+
 class Compressor:
     """Compress before the collective, decompress after. ``wire`` names a
     quantized wire format the executor applies (None: the wire carries what

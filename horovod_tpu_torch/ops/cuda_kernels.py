@@ -93,8 +93,8 @@ _SIGNATURES = {
                            + [_P] * 4, _I),
     "hvd_layer_norm_fwd": ("layer_norm", [_P, _I] + [_P] * 5
                            + [_I64, _I64, _F, _P], _I),
-    "hvd_adamw": ("adamw", [_P, _I, _I64, _I, _I] + [_F] * 9 + [_P], _I),
-    "hvd_adamw_block_elems": ("adamw", [], _I64),
+    "hvd_adamw": ("adamw", [_P, _I, _I, _I, _P] + [_F] * 9 + [_P], _I),
+    "hvd_adamw_table_leaves": ("adamw", [], _I),
     "hvd_matmul": ("matmul", [_P, _P, _I, _I64, _I64, _I64, _P, _P], _I),
 }
 
@@ -944,19 +944,32 @@ def adamw_update_plain(p, g, mu, nu, *, lr, ibc1, ibc2, b1, b2, eps, wd):
     nu.copy_(v)
 
 
-def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
-                 b2=0.999, eps=1e-8, weight_decay=0.0) -> None:
+def adamw_update(params, grads, mus, nus, *, lr=None, ibc1=None, ibc2=None,
+                 b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                 scalars=None) -> None:
     """AdamW step of every leaf, in place: p, mu and nu are overwritten.
     ``lr``, ``ibc1`` = 1/(1-b1^t), ``ibc2`` = 1/(1-b2^t) are the step's
-    scalars. p and g f32 or bf16 (the same), mu f32 or bf16, nu f32, all
-    contiguous. Replaces ``optim/fused.py:_apply_leaf_fused``: on the card
-    one launch covers every leaf of a (device, p dtype, mu dtype) group,
-    whatever the leaves' lengths."""
+    scalars, given as floats or as ``scalars``, an f32 ``[3]`` tensor
+    ``[lr, ibc1, ibc2]`` on the leaves' device that the kernel reads when it
+    runs (so a CUDA graph that captured the launch takes the values written
+    there before each replay). p and g f32 or bf16 (the same), mu f32 or
+    bf16, nu f32, all contiguous. Replaces
+    ``optim/fused.py:_apply_leaf_fused``: on the card one launch covers up
+    to ``hvd_adamw_table_leaves()`` leaves of a (device, p dtype, mu dtype)
+    group, whatever their lengths; the table rides in the launch's
+    parameters (nothing is copied to the device)."""
     if not len(params) == len(grads) == len(mus) == len(nus):
         raise ValueError("adamw_update: params, grads, mus and nus differ "
                          "in length")
-    kw = dict(lr=lr, ibc1=ibc1, ibc2=ibc2, b1=b1, b2=b2, eps=eps,
-              wd=weight_decay)
+    if scalars is not None:
+        if (not isinstance(scalars, torch.Tensor)
+                or scalars.dtype != torch.float32
+                or tuple(scalars.shape) != (3,)
+                or not scalars.is_contiguous()):
+            raise ValueError("adamw_update: scalars must be a contiguous "
+                             "float32 [3] tensor [lr, ibc1, ibc2]")
+    elif None in (lr, ibc1, ibc2):
+        raise ValueError("adamw_update: give lr, ibc1 and ibc2, or scalars")
     groups = {}
     for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus)):
         if (p.shape != g.shape or p.shape != mu.shape or p.shape != nu.shape
@@ -970,25 +983,34 @@ def adamw_update(params, grads, mus, nus, *, lr, ibc1, ibc2, b1=0.9,
                 f"{mu.dtype}, nu {tuple(nu.shape)} {nu.dtype} (want one "
                 "shape, contiguous, on one device; p and g f32 or bf16 "
                 "alike, mu f32 or bf16, nu f32)")
+        if scalars is not None and scalars.device != p.device:
+            raise ValueError(f"adamw_update: scalars on {scalars.device}, "
+                             f"leaf {i} on {p.device}")
         if p.device.type == "cpu":
-            adamw_update_plain(p, g, mu, nu, **kw)
+            if scalars is not None:
+                lr, ibc1, ibc2 = scalars.tolist()
+            adamw_update_plain(p, g, mu, nu, lr=lr, ibc1=ibc1, ibc2=ibc2,
+                               b1=b1, b2=b2, eps=eps, wd=weight_decay)
         elif p.numel():
             groups.setdefault((p.device, p.dtype, mu.dtype), []).append(
                 (p, g, mu, nu))
     if not groups:
         return
-    per_block = _kernel("hvd_adamw_block_elems")[1]()
+    per_table = 5 * _kernel("hvd_adamw_table_leaves")[1]()
+    dev_scalars = 0 if scalars is None else scalars.data_ptr()
+    host = (0.0, 0.0, 0.0) if scalars is not None else (lr, ibc1, ibc2)
     for (dev, p_dtype, mu_dtype), leaves in groups.items():
-        rows, first = [], 0
+        rows = array.array("q")
         for p, g, mu, nu in leaves:
-            rows += [g.data_ptr(), p.data_ptr(), mu.data_ptr(),
-                     nu.data_ptr(), p.numel(), first]
-            first += -(-p.numel() // per_block)
-        table = torch.tensor(rows, dtype=torch.int64).to(dev)
-        _launch("hvd_adamw", dev.index, table.data_ptr(), len(leaves), first,
-                _ADAMW_DTYPES[p_dtype], _ADAMW_DTYPES[mu_dtype], lr, ibc1,
-                ibc2, b1, 1.0 - b1, b2, 1.0 - b2, eps, weight_decay)
-        adamw_update.launches += 1
+            rows.extend((g.data_ptr(), p.data_ptr(), mu.data_ptr(),
+                         nu.data_ptr(), p.numel()))
+        for k in range(0, len(rows), per_table):
+            part = rows[k:k + per_table]
+            _launch("hvd_adamw", dev.index, part.buffer_info()[0],
+                    len(part) // 5, _ADAMW_DTYPES[p_dtype],
+                    _ADAMW_DTYPES[mu_dtype], dev_scalars, *host, b1,
+                    1.0 - b1, b2, 1.0 - b2, eps, weight_decay)
+            adamw_update.launches += 1
 
 
 # ------------------------------------------------------------------ matmul
@@ -1074,6 +1096,13 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (wrapper name -> launches) to the counters: what a
+    CUDA graph's replay launched, from the counts its capture took."""
+    for w in WRAPPERS:
+        w.launches += counts.get(w.__name__, 0)
 
 
 # ------------------------------------------------------------ unpacking

@@ -12,6 +12,11 @@ autocast with f32 parameters, in channels_last.
 ``synthetic_lm_train`` is the dense transformer-LM step of the reference's
 ``benchmarks/lm_bench.py``: tokens/s and MFU of AdamW training on seeded
 random tokens.
+
+``plane="compiled"`` (ResNet) / ``compiled=True`` (LM) trains through the
+compiled data-parallel plane instead, ``spmd.make_train_step``: one CUDA
+graph a step at world 1 on the card (``graph``), the quantized ring with its
+error-feedback residual on a wire, no engine and no hooks.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import basics
+from . import basics, spmd
 from .basics import Adasum, Average
 from .models import resnet
 from .models.transformer import TransformerLM, lm_loss, lm_loss_chunked
@@ -79,77 +84,136 @@ def synthetic_batch(batch: int, image: int, num_classes: int, rank: int,
     return images[sl], labels[sl].astype(np.int64)
 
 
+class ResNetTrainer:
+    """The model, data and optimizer of :func:`synthetic_train`, built on
+    this rank's device (the framework is initialized on ``device`` if it is
+    not yet); :meth:`step` takes one training step and returns the loss (a
+    device tensor). Arguments as in :func:`synthetic_train`; ``opt`` is the
+    plain SGD and ``train_step`` the compiled plane's step (None on the
+    engine's plane)."""
+
+    def __init__(self, model: str = "ResNet50", batch: int = 32,
+                 image: int = 224, compression=None,
+                 error_feedback: bool = True, device: Optional[str] = None,
+                 num_classes: int = 1000, seed: int = 0, op: str = "average",
+                 num_filters: int = 64, plane: str = "engine",
+                 graph: Optional[bool] = None, zero1: bool = False):
+        if op not in ("average", "adasum"):
+            raise ValueError(f"op {op!r}: expected 'average' or 'adasum'")
+        if plane not in ("engine", "compiled"):
+            raise ValueError(f"plane {plane!r}: expected 'engine' or "
+                             "'compiled'")
+        if plane == "compiled" and op != "average":
+            raise ValueError("the compiled plane averages (op='average')")
+        if compression is None:
+            compression = "int8" if op == "average" else "none"
+        compressor = (comp.by_name(compression)
+                      if isinstance(compression, str) else compression)
+        if op == "adasum":
+            if compressor not in (comp.NoneCompressor, comp.FP16Compressor):
+                raise ValueError(f"op='adasum' takes compression 'none' or "
+                                 f"'fp16', not {compression!r}")
+            error_feedback = False
+        if plane == "compiled" and compressor not in (
+                comp.NoneCompressor, comp.Int8Compressor,
+                comp.Int4Compressor):
+            raise ValueError(f"the compiled plane's wire is 'none', 'int8' "
+                             f"or 'int4', not {compression!r}")
+        basics.init(device=device)
+        self.device = dev = basics.device()
+        self.batch, self.plane, self.op = batch, plane, op
+        self.on_cuda = on_cuda = dev.type == "cuda"
+        self.net = net = getattr(resnet, model)(
+            num_classes=num_classes, seed=seed,
+            num_filters=num_filters).to(dev)
+        if on_cuda:
+            net = net.to(memory_format=torch.channels_last)
+        broadcast_parameters(net.state_dict(), root_rank=0)
+        images, labels = synthetic_batch(batch, image, num_classes,
+                                         basics.rank(), basics.size())
+        self.x = torch.from_numpy(images).to(dev)
+        self.y = torch.from_numpy(labels).to(dev)
+        self.opt = torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9)
+        self.train_step = None
+        if plane == "compiled":
+            self.train_step = spmd.make_train_step(
+                self._compiled_loss, self.opt, net, zero1=zero1, graph=graph,
+                compression=getattr(compressor, "wire", None) or "off")
+        else:
+            self.dist_opt = DistributedOptimizer(
+                self.opt, named_parameters=net.named_parameters(),
+                compression=compressor,
+                op=Adasum if op == "adasum" else Average,
+                error_feedback=error_feedback)
+
+    def _compiled_loss(self, xb, yb):
+        # no autocast cache: a CUDA graph replays the casts each step
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=self.on_cuda, cache_enabled=False):
+            logits = self.net(xb)
+        return F.cross_entropy(logits.float(), yb)
+
+    def step(self):
+        if self.train_step is not None:
+            return self.train_step(self.x, self.y)
+        self.dist_opt.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=self.on_cuda):
+            logits = self.net(self.x)
+        loss = F.cross_entropy(logits.float(), self.y)
+        loss.backward()
+        self.dist_opt.step()
+        return loss.detach()
+
+    def sync(self) -> None:
+        if self.on_cuda:
+            torch.cuda.synchronize(self.device)
+
+
 def synthetic_train(model: str = "ResNet50", batch: int = 32,
                     image: int = 224, steps: int = 5, warmup: int = 2,
                     compression=None, error_feedback: bool = True,
                     device: Optional[str] = None, num_classes: int = 1000,
                     seed: int = 0, op: str = "average",
-                    num_filters: int = 64) -> dict:
+                    num_filters: int = 64, plane: str = "engine",
+                    graph: Optional[bool] = None, zero1: bool = False
+                    ) -> dict:
     """Train ``model`` for ``warmup + steps`` steps on synthetic data.
 
     ``num_filters``: the model's width (64 is the published one).
     ``op``: ``"average"`` (gradients averaged; ``compression`` defaults to
     ``"int8"``) or ``"adasum"`` (the delta flow; ``compression`` is
     ``"none"``, its default, or ``"fp16"``, and error feedback is off).
+    ``plane``: ``"engine"`` (``DistributedOptimizer`` through the eager
+    engine) or ``"compiled"`` (``spmd.make_train_step`` with ``graph`` and
+    ``zero1``; ``op="average"`` only, and on a wire the error-feedback
+    residual is always carried, as in the reference).
     Initializes the framework on ``device`` if it is not initialized yet.
     Returns ``losses`` (every step's), ``images_per_sec`` (this rank, timed
     steps only), ``launches`` (kernel launches of this call, per wrapper),
     ``device``, ``peak_memory_bytes`` (CUDA only, else None) and
-    ``params_sha256``.
+    ``params_sha256``; on the compiled plane also ``graphed`` and
+    ``launches_per_replay``.
     """
-    if op not in ("average", "adasum"):
-        raise ValueError(f"op {op!r}: expected 'average' or 'adasum'")
-    if compression is None:
-        compression = "int8" if op == "average" else "none"
-    compressor = (comp.by_name(compression) if isinstance(compression, str)
-                  else compression)
-    if op == "adasum":
-        if compressor not in (comp.NoneCompressor, comp.FP16Compressor):
-            raise ValueError(f"op='adasum' takes compression 'none' or "
-                             f"'fp16', not {compression!r}")
-        error_feedback = False
-    basics.init(device=device)
-    dev = basics.device()
-    rank, world = basics.rank(), basics.size()
-    on_cuda = dev.type == "cuda"
-    net = getattr(resnet, model)(num_classes=num_classes, seed=seed,
-                                 num_filters=num_filters).to(dev)
-    if on_cuda:
-        net = net.to(memory_format=torch.channels_last)
-    broadcast_parameters(net.state_dict(), root_rank=0)
-    images, labels = synthetic_batch(batch, image, num_classes, rank, world)
-    x = torch.from_numpy(images).to(dev)
-    y = torch.from_numpy(labels).to(dev)
-    opt = DistributedOptimizer(
-        torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9),
-        named_parameters=net.named_parameters(), compression=compressor,
-        op=Adasum if op == "adasum" else Average,
-        error_feedback=error_feedback)
-
-    def step():
-        opt.zero_grad()
-        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=on_cuda):
-            logits = net(x)
-        loss = F.cross_entropy(logits.float(), y)
-        loss.backward()
-        opt.step()
-        return loss.detach()
-
-    def sync():
-        if on_cuda:
-            torch.cuda.synchronize(dev)
-
     before = ck.launch_counts()
+    tr = ResNetTrainer(model, batch=batch, image=image,
+                       compression=compression,
+                       error_feedback=error_feedback, device=device,
+                       num_classes=num_classes, seed=seed, op=op,
+                       num_filters=num_filters, plane=plane, graph=graph,
+                       zero1=zero1)
+    net, dev = tr.net, tr.device
     net.train()
-    if on_cuda:
+    if tr.on_cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    losses = [step() for _ in range(warmup)]
-    sync()
+    losses = [tr.step() for _ in range(warmup)]
+    tr.sync()
     t0 = time.perf_counter()
-    losses += [step() for _ in range(steps)]
-    sync()
+    losses += [tr.step() for _ in range(steps)]
+    tr.sync()
     elapsed = time.perf_counter() - t0
     after = ck.launch_counts()
+    ts = tr.train_step
     return {
         "losses": [float(v) for v in losses],
         "images_per_sec": batch * steps / elapsed if steps else None,
@@ -157,10 +221,16 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
         "device": str(dev),
         "op": op,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if on_cuda else None),
+                              if tr.on_cuda else None),
         "params_sha256": params_sha256(net),
         "gradient_leaves": sum(1 for p in net.parameters()
                                if p.requires_grad),
+        "plane": plane,
+        **(dict(graphed=ts.graphed,
+                launches_per_replay=ts.launches_per_replay, zero1=zero1,
+                zero1_state_numel=(ts.zero1_state_numel() if zero1
+                                   else None))
+           if ts is not None else {}),
     }
 
 
@@ -184,7 +254,8 @@ class LMTrainer:
                  fused_ln: bool = False, fused_opt: bool = False,
                  mu_dtype: str = "bf16", chunked="auto", remat: str = "none",
                  device: Optional[str] = None, seed: int = 0,
-                 num_layers: Optional[int] = None):
+                 num_layers: Optional[int] = None, compiled: bool = False,
+                 graph: Optional[bool] = None):
         if preset not in LM_PRESETS:
             raise ValueError(f"preset {preset!r}: expected one of "
                              f"{sorted(LM_PRESETS)}")
@@ -212,29 +283,43 @@ class LMTrainer:
         toks = torch.from_numpy(synthetic_lm_tokens(
             self.batch, self.seq, vocab, basics.rank(), self.world)).to(dev)
         self.x, self.y = toks[:, :-1], toks[:, 1:]
+        capturable = compiled and self.on_cuda
         if fused_opt:
             inner = FusedAdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
-                               mu_dtype=mu_dtype)
+                               mu_dtype=mu_dtype, capturable=capturable)
         else:
             inner = torch.optim.AdamW(net.parameters(), lr=3e-4,
-                                      weight_decay=0.01, fused=self.on_cuda)
-        self.opt = DistributedOptimizer(
-            inner, named_parameters=net.named_parameters())
+                                      weight_decay=0.01, fused=self.on_cuda,
+                                      capturable=capturable)
+        self.train_step = None
+        if compiled:
+            self.opt = inner
+            self.train_step = spmd.make_train_step(self._loss, inner, net,
+                                                   graph=graph)
+        else:
+            self.opt = DistributedOptimizer(
+                inner, named_parameters=net.named_parameters())
         self.config = dict(preset=preset, num_layers=self.num_layers,
                            batch=self.batch, seq=self.seq, vocab=vocab,
                            world=self.world, fused_ln=fused_ln,
                            fused_opt=fused_opt,
                            mu_dtype=mu_dtype if fused_opt else None,
-                           chunked=chunked, remat=remat)
+                           chunked=chunked, remat=remat, compiled=compiled,
+                           graphed=(self.train_step.graphed
+                                    if compiled else False))
+
+    def _loss(self, x, y):
+        if self.chunked:
+            return lm_loss_chunked(self.net(x, return_hidden=True),
+                                   self.net.tok_emb.weight, y)
+        return lm_loss(self.net(x), y)
 
     def step(self):
         """One training step; returns the loss (a device tensor)."""
+        if self.train_step is not None:
+            return self.train_step(self.x, self.y)
         self.opt.zero_grad()
-        if self.chunked:
-            loss = lm_loss_chunked(self.net(self.x, return_hidden=True),
-                                   self.net.tok_emb.weight, self.y)
-        else:
-            loss = lm_loss(self.net(self.x), self.y)
+        loss = self._loss(self.x, self.y)
         loss.backward()
         self.opt.step()
         return loss.detach()
@@ -250,7 +335,8 @@ def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
                        fused_ln: bool = False, fused_opt: bool = False,
                        mu_dtype: str = "bf16", chunked="auto",
                        remat: str = "none", device: Optional[str] = None,
-                       seed: int = 0, num_layers: Optional[int] = None
+                       seed: int = 0, num_layers: Optional[int] = None,
+                       compiled: bool = False, graph: Optional[bool] = None
                        ) -> dict:
     """Train the transformer LM of ``preset`` for ``warmup + steps`` steps
     (the dense path of ``benchmarks/lm_bench.py``).
@@ -267,6 +353,7 @@ def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
     logits would pass 2 GiB, as lm_bench does; or True / False. Weights
     come from ``seed``; tokens from ``RandomState(0)``, a global batch of
     ``batch * size()`` rows of which this rank takes its own.
+    ``compiled`` / ``graph``: the compiled plane (:class:`LMTrainer`).
 
     Returns ``losses``, ``tokens_per_sec`` (all ranks, timed steps),
     ``mfu_pct`` (6 * non-embedding parameters * tokens/s over the card's
@@ -277,7 +364,7 @@ def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
     tr = LMTrainer(preset, batch=batch, seq=seq, vocab=vocab,
                    fused_ln=fused_ln, fused_opt=fused_opt, mu_dtype=mu_dtype,
                    chunked=chunked, remat=remat, device=device, seed=seed,
-                   num_layers=num_layers)
+                   num_layers=num_layers, compiled=compiled, graph=graph)
     before = ck.launch_counts()
     if tr.on_cuda:
         torch.cuda.reset_peak_memory_stats(tr.device)
@@ -306,5 +393,7 @@ def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
         "n_params": tr.n_params, "n_nonemb_params": tr.n_nonemb,
         "gradient_leaves": sum(1 for p in tr.net.parameters()
                                if p.requires_grad),
+        "launches_per_replay": (tr.train_step.launches_per_replay
+                                if tr.train_step is not None else None),
         **tr.config,
     }

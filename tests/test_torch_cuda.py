@@ -4,7 +4,10 @@ the fused matmul + reduce-scatter; the int8 wire quantizers #1, its
 many-leaf launch, and #3; K4, the Adasum combine, alone and grouped), at
 small shapes and at the shapes where their paths part, with the
 tolerances of ``chip_smoke.py`` phases 1, 1b, 5, 6 and 7 (the quantizers
-bit for bit).
+bit for bit); K9 from device scalars against its host-scalar bits; and
+the compiled step (``spmd.make_train_step``) as a CUDA graph against the
+eager step over 3 steps with a changing lr, a small LM (K5, K7, K8, K9)
+and a small ResNet (#1, #2), with its launches per replay.
 
 Every test needs a CUDA device and skips without one. The module imports
 neither jax nor the reference, so that it runs where only PyTorch is
@@ -850,3 +853,194 @@ def test_adasum_launches_k4_on_the_engine_stream():
         assert r["engine_stream"] != r["main_stream"]
         np.testing.assert_allclose(r["y"], want, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(ranks[0]["y"], ranks[1]["y"])
+
+
+# ------------------------------------- K9 from device scalars; the graph
+@pytest.mark.parametrize("leaves", [3, 40, 600])
+def test_adamw_device_scalars_give_the_host_scalar_bits(leaves):
+    """K9 reading [lr, ibc1, ibc2] from a device buffer gives the bits of
+    its host-scalar call, for tables of both sizes and over the limit of
+    one launch (600 leaves: two launches)."""
+    gen = _gen()
+    sizes = [1 + (97 * i) % 5000 for i in range(leaves)]
+    ps = [torch.randn(n, generator=gen, device="cuda") for n in sizes]
+    gs = [torch.randn_like(p) for p in ps]
+    mus = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+           for n in sizes]
+    nus = [torch.rand(n, generator=gen, device="cuda") for n in sizes]
+    copy = [[t.clone() for t in ts] for ts in (ps, mus, nus)]
+    sc = dict(lr=3e-4, ibc1=10.0, ibc2=1000.0)
+    ck.adamw_update(ps, gs, mus, nus, b1=0.9, b2=0.999, eps=1e-8,
+                    weight_decay=0.01, **sc)
+    host = ck.launch_counts()["adamw_update"]
+    scalars = torch.tensor([sc["lr"], sc["ibc1"], sc["ibc2"]],
+                           device="cuda")
+    ck.adamw_update(copy[0], gs, copy[1], copy[2], b1=0.9, b2=0.999,
+                    eps=1e-8, weight_decay=0.01, scalars=scalars)
+    assert ck.launch_counts()["adamw_update"] == 2 * host
+    assert host == -(-leaves // 512)
+    for got, want in zip(copy, (ps, mus, nus)):
+        for a, b in zip(got, want):
+            assert _same_bits(a, b)
+
+
+@pytest.fixture
+def port_card():
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+def _lm_case(fused: bool, graph: bool):
+    """A 2-layer bf16 LM (head dim 64: K5 and K7 on wgmma; fused: K8 and
+    K9) and its compiled step."""
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.optim.fused import FusedAdamW
+
+    net = TransformerLM(512, num_layers=2, num_heads=2, d_model=128,
+                        max_seq_len=128, dtype=torch.bfloat16,
+                        fused_ln=fused, seed=3).cuda()
+    if fused:
+        opt = FusedAdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
+                         mu_dtype="bf16", capturable=True)
+    else:
+        opt = torch.optim.AdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
+                                fused=True, capturable=True)
+    step = spmd.make_train_step(lambda x, y: lm_loss(net(x), y), opt, net,
+                                graph=graph)
+    return net, opt, step
+
+
+def _resnet_case(graph: bool):
+    """A ResNet-18 of width 8 on the int8 wire (#1 and #2 a step) with a
+    fused SGD (its lr a device tensor under the graph)."""
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.models import resnet
+
+    net = resnet.ResNet18(num_classes=10, num_filters=8, seed=0).cuda()
+    opt = torch.optim.SGD(net.parameters(), lr=0.05, momentum=0.9,
+                          fused=True)
+
+    def loss_fn(x, y):
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            cache_enabled=False):
+            logits = net(x)
+        return torch.nn.functional.cross_entropy(logits.float(), y)
+
+    step = spmd.make_train_step(loss_fn, opt, net, compression="int8",
+                                graph=graph)
+    return net, opt, step
+
+
+def _graphed_against_eager(make, batch, lrs):
+    """3 steps graphed and eager from the same weights, the lr set before
+    each: (losses, params) of both, and the graphed step."""
+    out = {}
+    for graph in (False, True):
+        torch.manual_seed(0)
+        net, opt, step = make(graph)
+        losses = []
+        for lr in lrs:
+            opt.param_groups[0]["lr"] = lr
+            losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        out[graph] = (losses, [p.detach().float().cpu()
+                               for p in net.parameters()], step)
+    return out
+
+
+def _agree(out, lrs):
+    """Graphed against eager: losses to 1e-4 relative; 99.9% of the
+    parameter elements within 1e-6 and every one within 2 * sum(lr) (what
+    updates of opposite sign could open where an atomic sum's order flips
+    a gradient's last bit)."""
+    (le, pe, _), (lg, pg, _) = out[False], out[True]
+    assert all(abs(a - b) <= 1e-4 * abs(a) for a, b in zip(le, lg)), (le, lg)
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(pe, pg)])
+    assert float((diffs <= 1e-6).float().mean()) >= 0.999
+    assert float(diffs.max()) <= 2 * sum(lrs)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_graphed_lm_step_matches_eager_with_a_changing_lr(port_card, fused):
+    from horovod_tpu_torch.train import synthetic_lm_tokens
+
+    toks = torch.from_numpy(synthetic_lm_tokens(4, 128, 512, 0, 1)).cuda()
+    batch = (toks[:, :-1].contiguous(), toks[:, 1:].contiguous())
+    lrs = [3e-4, 1e-4, 5e-4]
+    out = _graphed_against_eager(lambda g: _lm_case(fused, g), batch, lrs)
+    _agree(out, lrs)
+    step = out[True][2]
+    assert step.graphed and not out[False][2].graphed
+    want = {"flash_attention_fwd": 2, "flash_attention_bwd": 2}
+    if fused:
+        want.update(layer_norm_fwd=5, adamw_update=1)
+    assert step.launches_per_replay == want
+
+
+def test_graphed_resnet_step_matches_eager_with_a_changing_lr(port_card):
+    from horovod_tpu_torch.train import synthetic_batch
+
+    images, labels = synthetic_batch(4, 32, 10, 0, 1)
+    batch = (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        lrs = [0.05, 0.02, 0.08]
+        out = _graphed_against_eager(_resnet_case, batch, lrs)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    _agree(out, lrs)
+    step = out[True][2]
+    assert step.launches_per_replay == {"int8_quantize_2d": 1,
+                                        "int8_dequantize_2d": 1}
+    ck.reset_launch_counts()
+    step(*batch)
+    assert ck.launch_counts()["int8_quantize_2d"] == 1
+    assert float(step.ef.abs().max()) > 0
+
+
+def test_graphed_step_refuses_what_it_cannot_replay(port_card):
+    """A parameter whose storage changed, an lr change that SGD without
+    ``fused`` froze, and AdamW without ``capturable``: each raises."""
+    from horovod_tpu_torch import spmd
+
+    w = torch.nn.Parameter(torch.randn(300, 4, device="cuda"))
+    x = torch.randn(8, 300, device="cuda")
+    opt = torch.optim.SGD([w], lr=0.1, momentum=0.9)
+    step = spmd.make_train_step(lambda a: (a @ w).square().mean(), opt, [w],
+                                graph=True)
+    step(x)
+    opt.param_groups[0]["lr"] = 0.2
+    with pytest.raises(RuntimeError, match="froze"):
+        step(x)
+    opt.param_groups[0]["lr"] = 0.1
+    step(x)
+    w.data = w.data.clone()
+    with pytest.raises(RuntimeError, match="storage"):
+        step(x)
+    adamw = torch.optim.AdamW([w], lr=0.1)
+    bad = spmd.make_train_step(lambda a: (a @ w).square().mean(), adamw, [w],
+                               graph=True)
+    with pytest.raises(ValueError, match="capturable"):
+        bad(x)
+
+
+def test_hop_dequantize_add_on_the_card_is_one_f32_rounding():
+    """A quantized hop's ``q * scale + local`` on the card (one f32
+    ``addcmul``) against the CPU's float64 route (the product exact, one
+    rounding): within one unit in the last place of each element."""
+    from horovod_tpu_torch import spmd
+
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randint(-127, 128, (64, 256), dtype=torch.int8, generator=gen)
+    scales = torch.rand(64, 1, generator=gen) * 1e-2
+    local = torch.randn(64 * 256, generator=gen)
+    want = spmd._dequant_add(q, scales, local)
+    got = spmd._dequant_add(q.cuda(), scales.cuda(), local.cuda()).cpu()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"))) - want.abs()
+    assert bool(((got - want).abs() <= ulp).all())
