@@ -64,6 +64,21 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    and at most one grouped #1 plus two a bucket a step; (c) Adasum, ranks
    and the two bit-identical, K4 once a step per tensor (one batch) and at
    most once a bucket bucketed; each with host ms and responses a step;
+3e. drives the engine's other programs at world size 4 (gloo, one card),
+   grouped 2 hosts x 2 (``HVD_UNIFORM_LOCAL_SIZE=2``): ResNet-50 (batch 32
+   a rank, 224x224, 1 warm-up and 2 steps) through the hooks in 25 MiB
+   buckets under (a) ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``, (b)
+   ``HOROVOD_GSPMD_ALGO=tree``, (c) ``Compression.int8_dcn`` and (d)
+   ``Compression.adaptive`` (``HOROVOD_ADAPTIVE_INTERVAL=1``), both with
+   error feedback: parameters bit-identical on the four ranks, the
+   configured algorithm and wire (under (d) each rank's sequence of wire
+   modes, the same on all), the last request's bytes equal to the
+   reference's accounting, and the wire kernels launched where the path
+   quantizes (under (c) the quantized sums run on the cross-host group
+   only); then ResNet-50's flat gradient (25,557,032 f32 values a rank,
+   seeded) through the two-level, tree, bf16, int8-dcn and adaptive int4
+   programs: ranks bit-identical, the error against the exact mean within
+   the reference's bounds, the bytes as accounted;
 4. trains ResNet-50 at world size 2 (batch 32 per rank, 224x224) for 2
    steps through ``DistributedOptimizer(op=Adasum)`` -- each step's 161
    deltas enqueued in one batch of the engine and combined in one grouped
@@ -1745,13 +1760,13 @@ def flip_hop(spmd, index: int) -> None:
     exchange = spmd._exchange
     seen = [0]
 
-    def faulty(t, to_rank, from_rank):
+    def faulty(t, to_rank, from_rank, group=None):
         if seen[0] == index:
             t = t.contiguous().clone()
             b = t.view(-1).view(torch.uint8)
             b[min(3, b.numel() - 1)] ^= 0xFF
         seen[0] += 1
-        return exchange(t, to_rank, from_rank)
+        return exchange(t, to_rank, from_rank, group)
 
     spmd._exchange = faulty
 
@@ -2256,6 +2271,284 @@ def phase_engine_world1() -> dict:
         raise AssertionError("phase 3b (d), the async API at world 1, "
                              "failed its checks")
     return res
+
+
+# -------------------------------------------------------------- phase 3e
+# The engine's programs at world 4 on one card, 2 hosts x 2. Cluster A
+# starts with HOROVOD_HIERARCHICAL_ALLREDUCE=1 (read at init), cluster B
+# with HOROVOD_GSPMD_ALGO=tree (the two-level knob would take precedence).
+# label: (cluster, compression, error feedback, algorithm, wire)
+PROGRAM_RUNS = {"a": ("A", "none", False, "hier", ""),
+                "b": ("B", "none", False, "tree", ""),
+                "c": ("A", "int8-dcn", True, "ring", "int8-dcn"),
+                "d": ("A", "adaptive", True, "ring", None)}
+# the flat gradient: label: (cluster, compression, algorithm, wire)
+PROGRAM_FLAT = {"hier": ("A", "none", "hier", ""),
+                "int8-dcn": ("A", "int8_dcn", "ring", "int8-dcn"),
+                "bf16": ("A", "bf16 wire", "ring", "bf16"),
+                "adaptive": ("A", "adaptive", "ring", "int4"),
+                "tree": ("B", "none", "tree", "")}
+PROGRAM_ENV = {"A": {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"},
+               "B": {"HOROVOD_GSPMD_ALGO": "tree"}}
+# error bounds against the exact mean of N(0, 1) rows: the exact programs
+# ALGO_EXACT_TOL absolute, int4 ALGO_TOL's; relative to the largest |mean|:
+# int8-dcn 3e-2 (tests/test_allreduce.py's bound for its bf16 + int8 hops),
+# bf16 2^-7 (two roundings to bf16: the parts and their sum)
+PROGRAM_REL_TOL = {"int8-dcn": 3e-2, "bf16": 2 ** -7}
+WIRE_KERNELS = ("int8_quantize_2d", "int8_quantize_pack_2d",
+                "int8_dequantize_2d", "int4_quantize_pack_2d")
+
+
+def wire_bytes(mode: str, n: int, world: int) -> int:
+    """The reference's accounting of one allreduce of ``n`` f32 values:
+    ``2 * n * 2`` on the bf16 wire, the quantized layout's on int8 /
+    int8-dcn / int4, ``2 * n * 4`` exact."""
+    from horovod_tpu_torch.runtime.executor import Executor
+
+    if mode == "bf16":
+        return 2 * n * 2
+    if mode:
+        return Executor.quantized_wire_layout(
+            n, world, bits=4 if mode == "int4" else 8)["wire_bytes"]
+    return 2 * n * 4
+
+
+def program_worker(cluster: str, batch: int, image: int, warmup: int,
+                   steps: int, total: int) -> dict:
+    """One rank of phase 3e's cluster ``cluster``: its training runs, then
+    its flat-gradient cases. The quantized sums are recorded with the group
+    they run on (the engine's whole group, or the cross-host one)."""
+    import hashlib
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import adaptive
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.optim.distributed import gradient_units
+    from horovod_tpu_torch.runtime.executor import Executor, group_ranks
+    from horovod_tpu_torch.train import ResNetTrainer, params_sha256
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    os.environ["HOROVOD_BUCKET_MB"] = ENGINE_BUCKET_MB
+    os.environ["HOROVOD_ADAPTIVE_INTERVAL"] = "1"
+    dev, r, world = hvd.device(), hvd.rank(), hvd.size()
+    ex = basics._executor()
+    sums = []
+    quantized_sum = Executor._quantized_sum
+
+    def recorded(self, x, bits, group=None, m=None):
+        sums.append(group_ranks(group if m else self._group))
+        return quantized_sum(self, x, bits, group, m)
+
+    Executor._quantized_sum = recorded
+    observe = hvd.Compression.adaptive.observe
+    observed = []  # host seconds of each observation (sample copy + stats)
+
+    def timed(name, flat):
+        t0 = time.perf_counter()
+        observe(name, flat)
+        observed.append(time.perf_counter() - t0)
+
+    hvd.Compression.adaptive.observe = staticmethod(timed)
+    out = {"backend": hvd.backend(), "runs": {}, "flat": {}}
+    for label, (cl, compression, ef, _, _) in PROGRAM_RUNS.items():
+        if cl != cluster:
+            continue
+        hvd.Compression.adaptive.reset()
+        adaptive.reset()
+        tr = ResNetTrainer("ResNet50", batch=batch, image=image,
+                           compression=compression, error_feedback=ef)
+        units, _ = gradient_units(tr.net.named_parameters(),
+                                  hvd.Compression.none)
+        tr.sync()
+        ck.reset_launch_counts()
+        sums.clear()
+        t0 = time.perf_counter()
+        res = {"losses": [], "modes": [], "algorithms": [], "bytes": [],
+               "decisions": [], "observe_ms": []}
+        for _ in range(warmup + steps):
+            observed.clear()
+            res["losses"].append(float(tr.step()))
+            res["modes"].append(ex.last_wire_mode)
+            res["algorithms"].append(ex.last_algorithm)
+            res["bytes"].append(ex.last_wire_bytes)
+            res["decisions"].append(
+                hvd.Compression.adaptive.selector().decisions())
+            res["observe_ms"].append(sum(observed) * 1e3)
+        tr.sync()
+        res.update(seconds=time.perf_counter() - t0,
+                   counts=ck.launch_counts(),
+                   sums=[list(g) for g in {tuple(g) for g in sums}],
+                   params_sha256=params_sha256(tr.net), buckets=len(units),
+                   last_n=sum(p.numel() for _, p in units[-1]),
+                   record=adaptive.bitwidth_decisions())
+        out["runs"][label] = res
+        del tr
+        torch.cuda.empty_cache()
+
+    def row(k):
+        gen = torch.Generator(dev).manual_seed(1000 + k)
+        return torch.randn(total, generator=gen, device=dev)
+
+    class Bf16Wire(hvd.Compression.none):
+        wire = "adaptive:bf16"  # the bf16 program, as negotiated
+
+    exact = sum(row(k).double() for k in range(world)) / world
+    x = row(r)
+    for label, (cl, compression, _, _) in PROGRAM_FLAT.items():
+        if cl != cluster:
+            continue
+        comp = (Bf16Wire if compression == "bf16 wire"
+                else getattr(hvd.Compression, compression))
+        name = f"flat.{label}"
+        if compression == "adaptive":  # one Gaussian observation: int4
+            hvd.Compression.adaptive.reset()
+            hvd.Compression.adaptive.observe(name, row(99)[:4096])
+        ck.reset_launch_counts()
+        sums.clear()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = hvd.allreduce(x, op=hvd.Average, name=name, compression=comp)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        err = (y.double() - exact).abs().max()
+        out["flat"][label] = {
+            "seconds": seconds, "mode": ex.last_wire_mode,
+            "algorithm": ex.last_algorithm, "bytes": ex.last_wire_bytes,
+            "digest": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
+            "err": float(err),
+            "rel": float(err / exact.abs().max()),
+            "counts": ck.launch_counts(),
+            "sums": [list(g) for g in {tuple(g) for g in sums}]}
+        del y
+    Executor._quantized_sum = quantized_sum
+    hvd.Compression.adaptive.observe = observe
+    return out
+
+
+def program_checks(label: str, runs: list, warmup: int, steps: int) -> tuple:
+    """Phase 3e's verdict on one training configuration: ``(ok, line)``."""
+    _, compression, _, algo, wire = PROGRAM_RUNS[label]
+    ran = warmup + steps
+    same = len({r["params_sha256"] for r in runs}) == 1
+    finite = all(math.isfinite(v) for r in runs for v in r["losses"])
+    r0 = runs[0]
+    algos = all(set(r["algorithms"]) == {algo} for r in runs)
+    if wire is None:  # adaptive: each rank's sequence, the same on all
+        modes = (all(r["modes"] == r0["modes"]
+                     and r["decisions"] == r0["decisions"] for r in runs)
+                 and r0["modes"][0] == "int8" and bool(r0["decisions"][0]))
+    else:
+        modes = all(set(r["modes"]) == {wire} for r in runs)
+    nbytes = all(r["bytes"][-1] == wire_bytes(r["modes"][-1], r0["last_n"],
+                                              4) for r in runs)
+    c = r0["counts"]
+    if label in ("a", "b"):  # exact: no wire kernel
+        launched = all(r["counts"][k] == 0 for r in runs
+                       for k in WIRE_KERNELS) and not r0["sums"]
+    elif label == "c":  # error feedback's #1 / #2; the wire's on the
+        # cross-host groups ([0, 2], [1, 3]) only
+        launched = (c["int8_quantize_2d"] >= ran
+                    and c["int8_dequantize_2d"] >= ran
+                    and all(len(g) == 2 and g[1] - g[0] == 2
+                            for r in runs for g in r["sums"]))
+    else:
+        launched = (c["int8_quantize_2d"] + c["int4_quantize_pack_2d"]
+                    >= 1 and c["int8_dequantize_2d"] >= 1)
+    ok = same and finite and algos and modes and nbytes and launched
+    line = (f"phase 3e ({label}): world 4 (gloo, one card, 2 x 2) ResNet-50 "
+            f"batch 32/rank {compression}, {PROGRAM_RUNS[label][3]}, "
+            f"{ran} steps ({warmup} warm-up) through the hooks in "
+            f"{ENGINE_BUCKET_MB} MiB buckets ({r0['buckets']}): params "
+            f"bit-identical {same}; algorithms {r0['algorithms']}: {algos}; "
+            f"wire modes {[r['modes'] for r in runs]}"
+            + (f", decisions {r0['decisions'][-1]}, host ms a step in "
+               f"observe {[round(v, 2) for v in r0['observe_ms']]}"
+               if wire is None else "")
+            + f": {modes}; last bytes {r0['bytes'][-1]} == accounting "
+            f"{wire_bytes(r0['modes'][-1], r0['last_n'], 4)} of "
+            f"{r0['last_n']} values: {nbytes}; launches "
+            f"{ {k: c[k] for k in WIRE_KERNELS} }, quantized sums on "
+            f"groups {r0['sums']}: {launched}; losses "
+            f"{[round(v, 4) for v in r0['losses']]}, "
+            f"{r0['seconds']:.1f} s: ok={ok}")
+    return ok, line
+
+
+def flat_checks(label: str, cases: list, total: int) -> tuple:
+    """Phase 3e's verdict on one flat-gradient program: ``(ok, line)``."""
+    _, _, algo, wire = PROGRAM_FLAT[label]
+    c0 = cases[0]
+    same = len({c["digest"] for c in cases}) == 1
+    if wire in PROGRAM_REL_TOL:
+        accurate = max(c["rel"] for c in cases) <= PROGRAM_REL_TOL[wire]
+    else:
+        accurate = max(c["err"] for c in cases) <= ALGO_TOL.get(
+            wire, ALGO_EXACT_TOL)
+    how = all((c["mode"], c["algorithm"]) == (wire, algo) for c in cases)
+    nbytes = all(c["bytes"] == wire_bytes(wire, total, 4) for c in cases)
+    k = c0["counts"]
+    if wire == "int8-dcn":
+        launched = (k["int8_quantize_2d"] > 0
+                    and all(len(g) == 2 and g[1] - g[0] == 2
+                            for c in cases for g in c["sums"]))
+    elif wire == "int4":
+        launched = k["int4_quantize_pack_2d"] > 0
+    else:
+        launched = all(k[n] == 0 for n in WIRE_KERNELS)
+    ok = same and accurate and how and nbytes and launched
+    line = (f"phase 3e flat gradient {label}: {total} f32 values a rank, "
+            f"{c0['algorithm']} / {c0['mode'] or 'exact'}: ranks "
+            f"bit-identical {same}, err {max(c['err'] for c in cases):.3e} "
+            f"(rel {max(c['rel'] for c in cases):.3e}): {accurate}; "
+            f"program {how}; bytes {c0['bytes']}: {nbytes}; launches "
+            f"{ {n: k[n] for n in WIRE_KERNELS} }: {launched}; "
+            f"{max(c['seconds'] for c in cases):.2f} s: ok={ok}")
+    return ok, line
+
+
+def phase_programs() -> dict:
+    """Phase 3e: the engine's two-level, tree, int8-dcn, bf16 and adaptive
+    programs at world 4 on one card, 2 hosts x 2."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    warmup, steps = 1, 2
+    total = resnet50_total()
+    out, ok = {"clusters": {}}, True
+    for cluster, env in PROGRAM_ENV.items():
+        env = dict(env, HVD_UNIFORM_LOCAL_SIZE="2")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            ranks = testing.run_cluster(
+                program_worker, np=4, device="cuda", timeout=600,
+                args=(cluster, 32, 224, warmup, steps, total))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out["clusters"][cluster] = ranks
+        ok = ok and all(r["backend"] == "gloo" for r in ranks)
+        for label in ranks[0]["runs"]:
+            good, line = program_checks(
+                label, [r["runs"][label] for r in ranks], warmup, steps)
+            log(line)
+            ok = ok and good
+        for label in ranks[0]["flat"]:
+            good, line = flat_checks(
+                label, [r["flat"][label] for r in ranks], total)
+            log(line)
+            ok = ok and good
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3e: {out['seconds']:.1f} s: ok={ok}")
+    if not ok:
+        raise AssertionError("phase 3e, the engine's programs at world 4, "
+                             "failed its checks")
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -3565,6 +3858,7 @@ def main(argv=None) -> int:
     algorithms = phase_algorithms()
     zero1 = phase_zero1()
     engine2 = phase_engine_world2()
+    programs = phase_programs()
     adasum2 = phase_adasum_world2()
     adasum4 = phase_adasum_world4()
     lm2 = phase_lm_world2()
@@ -3596,6 +3890,9 @@ def main(argv=None) -> int:
                for m in ("int8", "int4")]
             + [run["counts"] for r in engine2["ranks"]
                for run in r["runs"].values()]
+            + [x["counts"] for rs in programs["clusters"].values()
+               for r in rs for kind in ("runs", "flat")
+               for x in r[kind].values()]
             + [r["counts"] for r in adasum2["ranks"] + adasum4["ranks"]]
             + [r["counts"] for r in lm1.values()]
             + [r["counts"] for r in lm2["ranks"]]
@@ -3615,7 +3912,8 @@ def main(argv=None) -> int:
               "world2": world2, "engine_world1": engine1,
               "compiled_resnet": compiled1, "compiled_lm": lm_compiled,
               "algorithms": algorithms, "zero1": zero1,
-              "engine_world2": engine2, "adasum_world2": adasum2,
+              "engine_world2": engine2, "programs": programs,
+              "adasum_world2": adasum2,
               "attention_sass": attention_sass,
               "adasum_world4": adasum4, "lm_checks": lm_checks,
               "lm_world1": lm1, "lm_profile": lm_profile,

@@ -21,7 +21,9 @@ Entry points run on the card. They run on the CPU only when the caller asks
 ``shutdown`` stops it. In multiprocess mode the engine gets a process group
 of its own, made at ``init`` on every rank, so that collectives issued on
 the caller's thread (the parallel paths, ``spmd``) never interleave with
-the engine thread's on one group.
+the engine thread's on one group; with a host grouping
+(``HVD_UNIFORM_LOCAL_SIZE``, ``runtime/executor.two_level_size``) also
+its own host and cross-host groups, for the two-level programs.
 """
 
 from __future__ import annotations
@@ -115,10 +117,18 @@ def init(device=None) -> None:
             dev = _resolve_device(device, 0)
             st = _GlobalState(initialized=True, device=dev)
         from .runtime.engine import Engine
+        from .runtime.executor import two_level_size
 
-        group = (dist.new_group(list(range(st.size)))
-                 if st.mode == "multiprocess" else None)
-        st.engine = Engine(st, group)
+        group = two_level = None
+        if st.mode == "multiprocess":
+            group = dist.new_group(list(range(st.size)))
+            ls = two_level_size(st.size, True, st.local_size)
+            if ls:
+                from .parallel.hierarchical import build_two_level_mesh
+
+                two_level = build_two_level_mesh(st.size, st.rank, ls,
+                                                 dist.new_group)
+        st.engine = Engine(st, group, two_level)
         st.executor = st.engine._executor
         st.engine.start()
         _state = st

@@ -98,11 +98,14 @@ def _allreduce(tensor, name, op, prescale_factor, postscale_factor,
     if op == Adasum:
         return _enqueue(RequestType.ADASUM, tensor, name, callback=callback,
                         fusable=fusable, parts=parts, inplace=inplace)
+    # the adaptive wire enqueues this name's current decision,
+    # "adaptive:<mode>", for negotiation to arbitrate
+    wire_for = getattr(compression, "wire_for", None)
+    wire = wire_for(name) if wire_for is not None else compression.wire or ""
     return _enqueue(RequestType.ALLREDUCE, tensor, name,
                     average=(op == Average), prescale=prescale_factor,
                     postscale=postscale_factor, callback=callback,
-                    wire=compression.wire or "", fusable=fusable,
-                    inplace=inplace)
+                    wire=wire, fusable=fusable, inplace=inplace)
 
 
 def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
@@ -112,12 +115,13 @@ def allreduce_async(tensor: torch.Tensor, name: Optional[str] = None,
                     parts=None) -> int:
     """Asynchronous allreduce; returns a handle. ``callback(ok,
     result_or_error)`` runs on the engine thread at completion, before
-    ``synchronize`` returns. ``compression`` is the wire: int8 / int4
-    quantize inside the executor (Sum and Average; Adasum rides the exact
-    wire); a cast compressor belongs on :func:`allreduce`, which owns the
-    decompress side. ``fusable=False`` marks a client-built bucket that the
-    controller must not merge with others; ``parts`` (Adasum) are its
-    members' element counts, each combined with its own coefficients."""
+    ``synchronize`` returns. ``compression`` is the wire: int8, int8-dcn,
+    int4 and adaptive run inside the executor (Sum and Average; Adasum
+    rides the exact wire); a cast compressor belongs on :func:`allreduce`,
+    which owns the decompress side. ``fusable=False`` marks a client-built
+    bucket that the controller must not merge with others; ``parts``
+    (Adasum) are its members' element counts, each combined with its own
+    coefficients."""
     return _allreduce(tensor, name, op, prescale_factor, postscale_factor,
                       callback, compression, fusable, parts)
 

@@ -15,8 +15,12 @@ the reference, which takes its Pallas kernel only for shapes the TPU tiles,
 int8 quantize and dequantize take the CUDA kernel for every CUDA tensor; the
 formula is the same, so the bits are the same.
 
-Job-wide default: ``HOROVOD_COMPRESSION={none,fp16,bf16,int8,int4}``
-(:func:`from_env`).
+``int8-dcn`` quantizes only the hop across hosts, its hops within a host
+carry bf16; ``adaptive`` asks the per-bucket selector (``ops/adaptive.py``)
+for int4, int8 or bf16 a bucket.
+
+Job-wide default: ``HOROVOD_COMPRESSION={none,fp16,bf16,int8,int8-dcn,
+int4,adaptive}`` (:func:`from_env`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from . import adaptive
 from . import cuda_kernels as ck
 
 DEFAULT_BLOCK = 256
@@ -120,11 +125,13 @@ def quantize_roundtrip_many(tensors, block: int | None = None,
 def wire_footprint(num_elements: int, mode: str,
                    block: int | None = None) -> int:
     """Bytes a fused bucket of ``num_elements`` f32 elements moves over the
-    wire for one reduce-scatter + allgather round in ``mode``."""
+    wire for one reduce-scatter + allgather round in ``mode`` (``int8-dcn``
+    counts its quantized hop; ``adaptive:<mode>`` the negotiated grid, bare
+    ``adaptive`` the int8 it starts on)."""
     per_elem = {"none": 4, "fp32": 4, "fp16": 2, "bf16": 2}.get(mode)
     if per_elem is not None:
         return 2 * num_elements * per_elem
-    if mode == "int8":
+    if mode in ("int8", "int8-dcn", "int8_dcn"):
         block = block or block_size()
         blocks = -(-num_elements // block)
         return 2 * (num_elements + 4 * blocks)
@@ -133,6 +140,9 @@ def wire_footprint(num_elements: int, mode: str,
         block = block or block_size()
         blocks = -(-num_elements // block)
         return 2 * (-(-num_elements // 2) + 4 * blocks)
+    if mode == "adaptive" or mode.startswith("adaptive:"):
+        concrete = mode.split(":", 1)[1] if ":" in mode else "int8"
+        return wire_footprint(num_elements, concrete, block)
     raise ValueError(f"unknown compression mode {mode!r}")
 
 
@@ -310,25 +320,44 @@ class _WireCompressor(NoneCompressor):
     bits = 8
 
     @classmethod
+    def _bits(cls) -> int:
+        """The grid error feedback measures against (16: the bf16 cast)."""
+        return cls.bits
+
+    @classmethod
     def roundtrip(cls, tensor):
         if not torch.is_floating_point(tensor):
             return tensor
-        return quantize_roundtrip(tensor, bits=cls.bits)
+        bits = cls._bits()
+        if bits >= 16:
+            return tensor.to(torch.bfloat16).to(tensor.dtype)
+        return quantize_roundtrip(tensor, bits=bits)
 
     @classmethod
     def roundtrip_many(cls, tensors):
         """The float tensors through one :func:`quantize_roundtrip_many`
-        call; the others pass unchanged."""
+        call (the bf16 cast at 16 bits); the others pass unchanged."""
+        bits = cls._bits()
         out = list(tensors)
         idx = [i for i, t in enumerate(out) if torch.is_floating_point(t)]
-        for i, y in zip(idx, quantize_roundtrip_many([out[i] for i in idx],
-                                                     bits=cls.bits)):
+        if bits >= 16:
+            ys = [out[i].to(torch.bfloat16).to(out[i].dtype) for i in idx]
+        else:
+            ys = quantize_roundtrip_many([out[i] for i in idx], bits=bits)
+        for i, y in zip(idx, ys):
             out[i] = y
         return out
 
 
 class Int8Compressor(_WireCompressor):
     wire = "int8"
+
+
+class Int8DcnCompressor(_WireCompressor):
+    """int8 on the hop across hosts only; the hops within a host carry bf16
+    (the two-level program, without two levels the flat int8 one)."""
+
+    wire = "int8-dcn"
 
 
 class Int4Compressor(_WireCompressor):
@@ -339,6 +368,43 @@ class Int4Compressor(_WireCompressor):
     bits = 4
 
 
+class AdaptiveCompressor(_WireCompressor):
+    """Mixed-bitwidth wire (``HOROVOD_COMPRESSION=adaptive``): a bucket is
+    enqueued as ``adaptive:<mode>``, the mode its name's selector
+    (``ops/adaptive.BitwidthSelector``) decided from the reduced buckets
+    :meth:`observe` fed it; negotiation resolves ranks that race a decision
+    to the least aggressive grid. One selector a process, class-level;
+    :meth:`reset` drops it."""
+
+    wire = "adaptive:int8"  # before any statistics exist
+    _selector = None
+
+    @classmethod
+    def selector(cls):
+        if cls._selector is None:
+            cls._selector = adaptive.BitwidthSelector()
+        return cls._selector
+
+    @classmethod
+    def reset(cls):
+        cls._selector = None
+
+    @classmethod
+    def wire_for(cls, name: str) -> str:
+        return "adaptive:" + cls.selector().decide(name)
+
+    @classmethod
+    def observe(cls, name: str, flat) -> None:
+        cls.selector().observe(name, flat)
+
+    @classmethod
+    def _bits(cls) -> int:
+        """The most aggressive grid any bucket rides: one residual serves
+        every bucket (a bucket on a finer grid over-corrects a little,
+        which the next step's residual takes back)."""
+        return cls.selector().min_active_bits()
+
+
 class Compression:
     """The reference's Compression namespace."""
 
@@ -346,7 +412,9 @@ class Compression:
     fp16 = FP16Compressor
     bf16 = BF16Compressor
     int8 = Int8Compressor
+    int8_dcn = Int8DcnCompressor
     int4 = Int4Compressor
+    adaptive = AdaptiveCompressor
 
 
 _BY_NAME = {
@@ -355,8 +423,15 @@ _BY_NAME = {
     "fp16": FP16Compressor,
     "bf16": BF16Compressor,
     "int8": Int8Compressor,
+    "int8-dcn": Int8DcnCompressor,
+    "int8_dcn": Int8DcnCompressor,
     "int4": Int4Compressor,
+    "adaptive": AdaptiveCompressor,
 }
+
+#: wire name -> compressor
+BY_WIRE = {"int8": Int8Compressor, "int8-dcn": Int8DcnCompressor,
+           "int4": Int4Compressor}
 
 
 def by_name(name: str):
@@ -366,7 +441,7 @@ def by_name(name: str):
     except KeyError:
         raise ValueError(
             f"unknown compression {name!r}; expected one of "
-            "none/fp16/bf16/int8/int4") from None
+            "none/fp16/bf16/int8/int8-dcn/int4/adaptive") from None
 
 
 def from_env(default=NoneCompressor):

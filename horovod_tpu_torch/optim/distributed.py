@@ -17,6 +17,16 @@ hooks enqueue the longest ready prefix of that order during backward;
 where ``.grad`` is None, and drains every handle into ``.grad``. Ranks
 whose backward fires hooks in another order, or leaves other parameters
 unused, still pair the same tensors.
+
+Under ``Compression.adaptive`` every reduced tensor or bucket is fed to the
+bitwidth selector (``observe``) after the drain, on every rank, and error
+feedback measures its residual at the most aggressive grid in use.
+
+A sparse COO gradient (``nn.Embedding(sparse=True)``) goes on the wire as
+two allgathers (``ops/sparse.py``) and comes back densified into
+``.grad``, as the reference's optimizer densifies the gathered slices;
+``sparse_as_dense=True`` densifies it before the allreduce instead.
+Accumulation and error feedback take sparse gradients only densified.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 from .. import basics
 from ..basics import Adasum, Average
 from ..ops import collective_ops as ops
+from ..ops import sparse as _sparse
 from ..ops.compression import Compression
 
 
@@ -140,12 +151,14 @@ class _DistributedOptimizer(_StepOrder):
     def __init__(self, optimizer, named_parameters=None,
                  compression=Compression.none,
                  backward_passes_per_step: int = 1, op: int = Average,
-                 error_feedback: bool = False):
+                 error_feedback: bool = False,
+                 sparse_as_dense: bool = False):
         self._opt = optimizer
         self._compression = compression
         self._op = op
         self.backward_passes_per_step = backward_passes_per_step
         self._error_feedback = error_feedback
+        self._sparse_as_dense = sparse_as_dense
         self._ef_residual: Dict[str, torch.Tensor] = {}
         self._named = _named(optimizer, named_parameters)
         self._should_sync = True
@@ -157,8 +170,24 @@ class _DistributedOptimizer(_StepOrder):
                 if p.requires_grad:
                     p.register_post_accumulate_grad_hook(self._hook(name))
 
+    def _check_sparse(self, grads) -> None:
+        """Refuse sparse gradients where the reference refuses them: under
+        accumulation or error feedback, unless ``sparse_as_dense``."""
+        if self._sparse_as_dense or not any(
+                g is not None and g.is_sparse for g in grads):
+            return
+        if self.backward_passes_per_step > 1:
+            raise NotImplementedError(
+                "backward_passes_per_step > 1 with sparse gradient leaves "
+                "requires sparse_as_dense=True")
+        if self._error_feedback:
+            raise NotImplementedError(
+                "error_feedback with sparse gradient leaves requires "
+                "sparse_as_dense=True")
+
     def _hook(self, name: str):
         def hook(p):
+            self._check_sparse([p.grad])
             self._counts[name] = self._counts.get(name, 0) + 1
             if self._counts[name] < self.backward_passes_per_step:
                 return
@@ -173,11 +202,23 @@ class _DistributedOptimizer(_StepOrder):
 
     def _enqueue(self, grads) -> None:
         """Enqueue the next unit's gradients ``grads`` (compressed; a bucket
-        as one flat concat)."""
+        as one flat concat). A sparse gradient goes on its own, as two
+        allgathers, unless ``sparse_as_dense``. ``self._handles`` gets
+        ``(handles, members, comps, name)``: comps None for a sparse one."""
         k, unit = self._next, self._units[self._next]
         self._next += 1
+        dense = []
+        for (n, p), g in zip(unit, grads):
+            if g.is_sparse and not self._sparse_as_dense:
+                pair = _sparse.allreduce_sparse_async(
+                    _sparse.from_sparse_coo(g), name=f"grad.{n}")
+                self._handles.append((list(pair), [(n, p)], None, None))
+            else:
+                dense.append(((n, p), g.to_dense() if g.is_sparse else g))
+        if not dense:
+            return
         with torch.no_grad():
-            comps = [self._compression.compress(g) for g in grads]
+            comps = [self._compression.compress(g) for _, g in dense]
             if self._bucketed:
                 flat, name = _flat([c for c, _ in comps]), f"grad.bucket.{k}"
             else:
@@ -185,7 +226,7 @@ class _DistributedOptimizer(_StepOrder):
         h = ops.allreduce_async(flat, name=name, op=self._op,
                                 compression=self._compression,
                                 fusable=not self._bucketed)
-        self._handles.append((h, unit, comps))
+        self._handles.append(([h], [m for m, _ in dense], comps, name))
 
     def _apply_error_feedback(self, names, grads) -> List[torch.Tensor]:
         """corrected = grad + residual for each named gradient; the new
@@ -216,8 +257,12 @@ class _DistributedOptimizer(_StepOrder):
         ``.grad``. A refused or failed request raises once every handle has
         completed, and the next step starts clean."""
         if basics.size() == 1:
-            if self._error_feedback:
-                with torch.no_grad():
+            with torch.no_grad():
+                self._check_sparse([p.grad for _, p in self._named])
+                for _, p in self._named:  # the reference densifies
+                    if p.grad is not None and p.grad.is_sparse:
+                        p.grad = p.grad.to_dense()
+                if self._error_feedback:
                     named = [(n, p) for n, p in self._named
                              if p.grad is not None]
                     corrected = self._apply_error_feedback(
@@ -231,23 +276,39 @@ class _DistributedOptimizer(_StepOrder):
                 grads = {n: p.grad if p.grad is not None
                          else torch.zeros_like(p)
                          for unit in units[self._next:] for n, p in unit}
+                self._check_sparse(grads.values())
                 if self._error_feedback:
                     names = [n for n, p in self._named if n in grads]
                     grads = dict(zip(names, self._apply_error_feedback(
-                        names, [grads[n] for n in names])))
+                        names, [grads[n].to_dense() if grads[n].is_sparse
+                                else grads[n] for n in names])))
                 while self._next < len(units):
                     self._enqueue([grads[n] for n, _ in units[self._next]])
             handles = self._handles
-            results = ops.synchronize_all([h for h, _, _ in handles])
+            results = ops.synchronize_all([h for hs, _, _, _ in handles
+                                           for h in hs])
         finally:
             self._reset_order()
             self._ready, self._counts = set(), {}
+        observe = getattr(self._compression, "observe", None)
+        results = iter(results)
         with torch.no_grad():
-            for (_, unit, comps), out in zip(handles, results):
-                outs = _views(out, [c for c, _ in comps])
-                for (_, p), (_, ctx), o in zip(unit, comps, outs):
+            for _, members, comps, name in handles:
+                if comps is None:  # two allgathers, densified
+                    (_, p), = members
+                    outs = [_sparse.to_dense(_sparse.gathered(
+                        next(results), next(results), self._op,
+                        tuple(p.shape)))]
+                    ctxs = [None]
+                else:
+                    out = next(results)
+                    if observe is not None:  # the reduced bucket, on
+                        observe(name, out)  # every rank
+                    outs = _views(out, [c for c, _ in comps])
+                    ctxs = [ctx for _, ctx in comps]
+                for (_, p), ctx, o in zip(members, ctxs, outs):
                     g = self._compression.decompress(o, ctx)
-                    if p.grad is None:
+                    if p.grad is None or p.grad.is_sparse:
                         p.grad = g.to(p.dtype)
                     else:
                         p.grad.copy_(g)
@@ -410,15 +471,17 @@ class _DistributedAdasumOptimizer(_StepOrder):
 def DistributedOptimizer(optimizer, named_parameters=None,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
-                         op: int = Average, error_feedback: bool = False):
+                         op: int = Average, error_feedback: bool = False,
+                         sparse_as_dense: bool = False):
     """Wrap ``optimizer`` so that ``step()`` first averages (``op=Average``)
     or sums (``op=Sum``) every gradient across ranks, or, with
     ``op=Adasum`` at a world size above 1, so that it combines the local
     updates across ranks (the delta flow; a power-of-2 world). At world
     size 1 ``op=Adasum`` is the plain inner step.
 
-    ``compression``: ``Compression.none/fp16/bf16/int8/int4``; under Adasum
-    the fp16/bf16 casts compose and int8/int4 ride the exact wire.
+    ``compression``: ``Compression.none/fp16/bf16/int8/int8_dcn/int4/
+    adaptive``; under Adasum the fp16/bf16 casts compose and the wires
+    ride the exact one.
     ``error_feedback=True`` (for a lossy compression, not with Adasum): each
     step sends ``grad + residual`` and keeps as the new residual what the
     wire dropped, ``corrected - compression.roundtrip(corrected)``; the
@@ -426,7 +489,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     ``backward_passes_per_step``: the number of backward passes accumulated
     into ``.grad`` per step (the raw accumulated sum goes on the wire, as in
     the reference); under Adasum, the number after which a parameter's
-    local update is taken.
+    local update is taken. ``sparse_as_dense``: densify sparse gradients
+    before the allreduce (else two allgathers, densified after).
     """
     if op == Adasum and error_feedback:
         raise ValueError(
@@ -437,4 +501,5 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                                            compression,
                                            backward_passes_per_step)
     return _DistributedOptimizer(optimizer, named_parameters, compression,
-                                 backward_passes_per_step, op, error_feedback)
+                                 backward_passes_per_step, op, error_feedback,
+                                 sparse_as_dense)

@@ -1,7 +1,14 @@
 """Parallelism beyond data parallelism (counterpart of
 ``horovod_tpu/parallel``): sequence parallelism by ring attention and by
 Ulysses, LM training over a (dp, sp) grid of processes, Megatron tensor
-parallelism over a (dp, tp) grid, and the 3D (dp, tp, sp) hybrid."""
+parallelism over a (dp, tp) grid, the 3D (dp, tp, sp) hybrid, and the
+two-level (host, cross-host) allreduce."""
+
+from .hierarchical import (  # noqa: F401
+    hierarchical_allreduce,
+    make_hierarchical_allreduce,
+    make_two_level_mesh,
+)
 
 from .ring_attention import (  # noqa: F401
     make_ring_attention,

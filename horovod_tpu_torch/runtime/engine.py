@@ -68,7 +68,8 @@ from .executor import Executor
 from .handles import HandleManager
 from .messages import (AlltoallvResult, Response, ResponseType,
                        TensorTableEntry)
-from .pycontroller import PyController, _Meta, _per_rank, validate
+from .pycontroller import (PyController, _Meta, _per_rank,
+                           resolve_compression, validate)
 
 DEFAULT_FUSION_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_MS = 5.0
@@ -126,11 +127,12 @@ def _tensors(result):
 class Engine:
     """One engine per process; owns the negotiation thread and executor.
     ``state`` is the framework's state (``basics._GlobalState``); ``group``
-    is the engine's own process group in multiprocess mode.
+    is the engine's own process group in multiprocess mode, ``two_level``
+    its host grouping (``parallel.hierarchical.TwoLevelMesh``) or None.
     ``responses_performed`` counts the responses executed (fused or not,
     errors excluded)."""
 
-    def __init__(self, state, group=None):
+    def __init__(self, state, group=None, two_level=None):
         self._world = state.size
         self._mode = state.mode
         self._rank = state.rank
@@ -139,7 +141,8 @@ class Engine:
         self._negotiate_across = state.mode == "multiprocess" and state.size > 1
         self.handles = HandleManager()
         self.controller = _make_controller(state.size, state.mode, state.rank)
-        self._executor = Executor(state.size, state.backend, group)
+        self._executor = Executor(state.size, state.backend, group,
+                                  two_level)
         # reentrant: batch() holds it across several enqueues
         self._lock = threading.RLock()
         self._wake = threading.Condition(self._lock)
@@ -436,7 +439,9 @@ class Engine:
         """The error that fails ``resp`` on every rank, or None. In
         multiprocess mode one ``all_gather_object`` of every rank's
         metadata (and local error) for this response comes first; it fills
-        in the sizes a ragged allgather or alltoall needs."""
+        in the sizes a ragged allgather or alltoall needs, and an
+        allreduce's wire (ranks racing an adaptive decision agree on the
+        least aggressive grid)."""
         mine = (resp.error_message or "unknown error"
                 if resp.response_type == ResponseType.ERROR else None)
         if not self._negotiate_across:
@@ -459,7 +464,10 @@ class Engine:
             err = validate(row[0].name, {m.rank: m for m in row}, self._world)
             if err is not None:
                 return err
-        if resp.response_type == ResponseType.ALLGATHER:
+        if resp.response_type == ResponseType.ALLREDUCE:
+            resp.compression = resolve_compression(
+                [m for row in rows for m in row])
+        elif resp.response_type == ResponseType.ALLGATHER:
             resp.tensor_sizes = [[m.shape[0] for m in row] for row in rows]
         elif (resp.response_type == ResponseType.ALLTOALL
               and rows[0][0].splits is not None):

@@ -1,18 +1,32 @@
-"""Data-plane programs of the engine (subset of
+"""Data-plane programs of the engine (a port of
 ``horovod_tpu/runtime/executor.py``): :meth:`Executor.execute` runs one
-negotiated response -- the allreduce on the exact wire or the
-block-quantized int8 / int4 wire (with its bypass rules and byte
-accounting) over the response's tensors packed into one flat buffer, the
-Adasum combine tree, the ragged allgather, broadcast and alltoall(v) --
-over ``torch.distributed``.
+negotiated response -- an allreduce over the response's tensors packed into
+one flat buffer, the Adasum combine tree, the ragged allgather, broadcast
+and alltoall(v) -- over ``torch.distributed``.
 
-The quantized allreduce is the reference's ``_allreduce_q_fn``: pad the f32
-row to ``world`` chunks of whole blocks, quantize, all-to-all (the
-reduce-scatter hop), dequantize and sum in f32 over ranks in rank order,
-requantize, all-gather, dequantize, then divide by the world size for an
-average. The send side runs the CUDA kernels (`ops/cuda_kernels.py`); the
-receive side (unpack, dequantize, sum) is plain torch, as it is jnp in the
-reference.
+An allreduce takes one of the reference's programs, in its order: the bf16
+wire, the quantized wire (int8, int4, int8-dcn), the exact tree, the exact
+two-level program, or the flat exact one (the ring). The wire comes from
+negotiation (``adaptive:<mode>`` is its mode) less the bypasses of
+:meth:`Executor.effective_wire`; the algorithm from
+``HOROVOD_GSPMD_ALGO`` (``auto``: a tuner's broadcast, else the ring) or
+``HOROVOD_HIERARCHICAL_ALLREDUCE``. The two-level programs need a host
+grouping (:func:`two_level_size`); without one they are the flat ones.
+
+* The quantized allreduce is the reference's ``_allreduce_q_fn``: pad the
+  f32 row to ``world`` chunks of whole blocks, quantize, all-to-all (the
+  reduce-scatter hop), dequantize and sum in f32 over ranks in rank order,
+  requantize, all-gather, dequantize, then divide by the world size for an
+  average. int8-dcn with two levels runs the hops within a host in bf16 and
+  this program across hosts only. The send side runs the CUDA kernels
+  (`ops/cuda_kernels.py`); the receive side (unpack, dequantize, sum) is
+  plain torch, as it is jnp in the reference.
+* The bf16 program casts the prescaled f32 row to bf16 for both hops of a
+  reduce-scatter and all-gather; the two-level program is
+  ``parallel/hierarchical.two_level_sum``; the tree is
+  ``spmd.quantized_allreduce_tree`` on the exact wire over the engine's
+  group. Their sums add in rank order, bf16 parts in f32 rounded once, as
+  XLA reduces a bf16 collective on the CPU.
 """
 
 from __future__ import annotations
@@ -22,11 +36,17 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..exceptions import HorovodInternalError
+from ..ops import adaptive
 from ..ops import compression as comp
 from ..ops import cuda_kernels as ck
+from ..utils.env import env_on
 from .messages import AlltoallvResult, ResponseType
+
+#: the wires the executor runs in its programs
+WIRES = ("int8", "int8-dcn", "int4", "bf16")
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -123,6 +143,22 @@ def start_ppermute(t: torch.Tensor, backend: Optional[str], group=None,
     return wait
 
 
+def two_level_size(world: int, multiprocess: bool, local_size: int) -> int:
+    """Ranks a host in the two-level grouping, or 0 for none. In
+    multiprocess mode only ``HVD_UNIFORM_LOCAL_SIZE`` sets it (every rank
+    must run the same programs, and the launcher exports that one alike to
+    all); in one process ``HVD_LOCAL_SIZE`` or the local size. A grouping
+    of one rank a host, of one host, or that does not divide the world is
+    none."""
+    if multiprocess:
+        ls = int(os.environ.get("HVD_UNIFORM_LOCAL_SIZE", 0))
+    else:
+        ls = int(os.environ.get("HVD_LOCAL_SIZE", 0)) or local_size
+    if ls <= 1 or ls >= world or world % ls:
+        return 0
+    return ls
+
+
 def _pack(entries) -> torch.Tensor:
     """One rank's entries as one flat buffer, in response order (the
     reference's ``_pack``, MemcpyInFusionBuffer); a single entry is a
@@ -143,15 +179,26 @@ def _unpack(flat: torch.Tensor, entries) -> list:
 
 class Executor:
     """Per-process executor over the process ``group`` (None: every rank).
-    ``last_wire_mode`` / ``last_wire_bytes`` record what the last allreduce
-    put on the wire (as ``_record_wire`` does in the reference)."""
+    ``two_level`` (a ``parallel.hierarchical.TwoLevelMesh`` with groups of
+    the engine's own, or None) is the host grouping; the knobs
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE`` / ``_ALLGATHER`` are read here, once.
+    ``last_wire_mode`` / ``last_wire_bytes`` / ``last_algorithm`` record
+    what the last allreduce put on the wire and how (as ``_record_wire``
+    does in the reference)."""
 
-    def __init__(self, world: int, backend: Optional[str], group=None):
+    def __init__(self, world: int, backend: Optional[str], group=None,
+                 two_level=None):
         self._world = world
         self._backend = backend
         self._group = group
+        self._two_level = two_level
+        self._hier_allreduce = (two_level is not None
+                                and env_on("HOROVOD_HIERARCHICAL_ALLREDUCE"))
+        self._hier_allgather = (two_level is not None
+                                and env_on("HOROVOD_HIERARCHICAL_ALLGATHER"))
         self.last_wire_mode = ""
         self.last_wire_bytes = 0
+        self.last_algorithm = "ring"
 
     def _collective(self, kind: str, t: torch.Tensor,
                     root: int = 0) -> torch.Tensor:
@@ -219,6 +266,10 @@ class Executor:
         return res
 
     def _exec_allgather(self, response, entries) -> list:
+        """The ragged allgather: every rank's rows padded to the longest,
+        gathered, and cut back. ``HOROVOD_HIERARCHICAL_ALLGATHER`` gathers
+        within the host, then across hosts: the same rows in the same
+        (host-major) order."""
         if self._world == 1:
             return [e.array.clone() for e in entries]
         outs = []
@@ -228,7 +279,14 @@ class Executor:
             if x.shape[0] < top:  # every rank sends the same number of rows
                 x = torch.cat([x, x.new_zeros((top - x.shape[0],)
                                               + tuple(x.shape[1:]))])
-            parts = self._collective("all_gather", x)
+            if self._hier_allgather:  # within the host, then across
+                two = self._two_level
+                parts = _collective(
+                    "all_gather", _collective("all_gather", x, self._backend,
+                                              two.ici, group=two.host_group),
+                    self._backend, two.dcn, group=two.cross_group)
+            else:
+                parts = self._collective("all_gather", x)
             outs.append(torch.cat([parts[r * top:r * top + n]
                                    for r, n in enumerate(sizes)]))
         return outs
@@ -276,13 +334,19 @@ class Executor:
                 "wire_bytes": 2 * (payload + scales)}
 
     def effective_wire(self, wire: Optional[str], dtype: torch.dtype,
-                       length: int) -> str:
-        """The wire mode a tensor actually uses: quantized only for a float
+                       length: int, adasum: bool = False) -> str:
+        """The wire mode a tensor actually uses: the negotiated wire
+        (``adaptive:<mode>``: its mode), quantized or cast only for a float
         tensor of at least ``HOROVOD_COMPRESSION_MIN_SIZE`` (1024) elements
-        at world >= 2; int4 downgrades to int8 for an odd block."""
-        if wire not in ("int8", "int4"):
+        at world >= 2 and never under Adasum; int4 downgrades to int8 for
+        an odd block. The rules read only negotiated facts, so every rank
+        resolves the same mode."""
+        wire = wire or ""
+        if wire.startswith("adaptive:"):
+            wire = wire.split(":", 1)[1]
+        if wire not in WIRES:
             return ""
-        if self._world == 1:
+        if adasum or self._world == 1:
             return ""
         if not dtype.is_floating_point:
             return ""  # integer/bool tensors ride the exact wire
@@ -293,47 +357,138 @@ class Executor:
             return "int8"  # nibble packing needs an even block
         return wire
 
-    def _record_wire(self, wire: str, length: int, dtype: torch.dtype) -> None:
+    def _algo_choice(self) -> str:
+        """The allreduce algorithm: an explicit ``HOROVOD_GSPMD_ALGO=ring|
+        tree|hier`` wins; unset or ``auto`` follows a tuner's broadcast
+        (``ops/adaptive.set_autotuned_algorithm``), else the ring."""
+        from .. import spmd
+
+        v = spmd.gspmd_algo()  # validates the knob
+        if os.environ.get("HOROVOD_GSPMD_ALGO", "").strip().lower() in (
+                "ring", "tree", "hier"):
+            return v
+        return adaptive.autotuned_algorithm() or "ring"
+
+    def _record_wire(self, wire: str, length: int, dtype: torch.dtype,
+                     algorithm: Optional[str] = None) -> None:
+        """What the allreduce put on the wire: ``2 * length * 2`` bytes on
+        the bf16 wire, the quantized layout's on int8 / int8-dcn / int4,
+        the dtype's on the exact wire; with ``algorithm``, also
+        ``last_algorithm`` and the compiled plane's per-class record
+        (``spmd._note_algorithm``)."""
         self.last_wire_mode = wire
-        if wire:
+        if wire == "bf16":
+            self.last_wire_bytes = 2 * length * 2
+        elif wire:
             self.last_wire_bytes = self.quantized_wire_layout(
                 length, self._world,
                 bits=4 if wire == "int4" else 8)["wire_bytes"]
         else:
             self.last_wire_bytes = 2 * length * dtype.itemsize
+        if algorithm is not None:
+            from .. import spmd
+
+            self.last_algorithm = algorithm
+            spmd._note_algorithm(algorithm, length)
 
     def allreduce(self, tensor: torch.Tensor, average: bool,
                   wire: Optional[str] = None, prescale: float = 1.0,
                   postscale: float = 1.0) -> torch.Tensor:
         """Sum (or average) ``tensor`` over all ranks; the result has the
-        input's shape, dtype and device. ``prescale`` multiplies each rank's
-        contribution before the sum, ``postscale`` the result after the
-        average: in the tensor's dtype on the exact wire, in f32 on the
-        quantized one, as the reference's programs do."""
+        input's shape, dtype and device. The program, in the reference's
+        order: the bf16 wire, a quantized wire, the tree
+        (``HOROVOD_GSPMD_ALGO=tree``, a float of at most 4 bytes on a
+        power-of-2 world), the two-level program
+        (``HOROVOD_HIERARCHICAL_ALLREDUCE`` or ``HOROVOD_GSPMD_ALGO=hier``
+        with a host grouping), else the flat ring. ``prescale`` multiplies
+        each rank's contribution before the sum, ``postscale`` the result
+        after the average: in the tensor's dtype on the exact programs, in
+        f32 on the bf16 and quantized ones, as the reference's programs
+        do; an integer average floor-divides."""
         length = tensor.numel()
         mode = self.effective_wire(wire, tensor.dtype, length)
-        self._record_wire(mode, length, tensor.dtype)
-        if self._world == 1:
+        world = self._world
+        if world == 1:
+            self._record_wire(mode, length, tensor.dtype)
             f = prescale * postscale
             return tensor.clone() if f == 1.0 else tensor * _scalar(f, tensor)
+        algo = self._algo_choice()
+        two = self._two_level
+        hier = not mode and (self._hier_allreduce
+                             or (algo == "hier" and two is not None))
+        tree = (algo == "tree" and not mode and not hier
+                and world & (world - 1) == 0
+                and tensor.dtype.is_floating_point
+                and tensor.element_size() <= 4)
+        self._record_wire(mode, length, tensor.dtype,
+                          "tree" if tree else ("hier" if hier else "ring"))
         flat = tensor.reshape(-1)
-        if mode:
-            x = flat.float()
+        if mode:  # f32 programs; int8-dcn's two-level one prescales in
+            # the tensor's dtype before its bf16 cast
+            dcn2 = mode == "int8-dcn" and two is not None
+            x = flat if dcn2 else flat.float()
             if prescale != 1.0:
                 x = x * _scalar(prescale, x)
-            out = self._quantized_sum(x, bits=4 if mode == "int4" else 8)
+            if mode == "bf16":
+                out = self._bf16_sum(x)
+            elif dcn2:
+                out = self._int8_dcn_sum(x)
+            else:
+                out = self._quantized_sum(x, bits=4 if mode == "int4" else 8)
             if average:
-                out = out / self._world
+                out = out / world
         else:
             if prescale != 1.0:
                 flat = flat * _scalar(prescale, flat)
-            out = self._collective("all_reduce", flat)
+            if tree:
+                from .. import spmd
+                from ..basics import Sum
+
+                out = spmd.quantized_allreduce_tree(
+                    flat, Sum, wire="off", group=self._group)
+            elif hier:
+                from ..parallel.hierarchical import two_level_sum
+
+                out = two_level_sum(flat, two, self._backend)
+            else:
+                out = self._collective("all_reduce", flat)
             if average:
-                out = (out // self._world if not out.dtype.is_floating_point
-                       else out / self._world)
+                out = (out // world if not out.dtype.is_floating_point
+                       else out / world)
         if postscale != 1.0:
             out = out * _scalar(postscale, out)
         return out.to(tensor.dtype).reshape(tensor.shape)
+
+    def _bf16_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The bf16 program's sum of the flat f32 ``x``: cast to bf16 (the
+        wire format of both hops), padded to ``world`` chunks, a
+        reduce-scatter and an all-gather; the f32 result."""
+        from ..parallel.hierarchical import reduce_scatter_sum
+
+        length = x.numel()
+        xb = F.pad(x.to(torch.bfloat16), (0, (-length) % self._world))
+        s = reduce_scatter_sum(xb, self._group, self._world, self._backend)
+        return self._collective("all_gather", s).float()[:length]
+
+    def _int8_dcn_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """int8-dcn's two-level sum of the flat ``x`` (in its dtype): cast
+        to bf16 and reduce-scattered within the host, the owned chunk
+        summed across hosts on the int8 wire (:meth:`_quantized_sum` over
+        the cross group), then all-gathered within the host in bf16; the
+        f32 result."""
+        from ..parallel.hierarchical import reduce_scatter_sum
+
+        two = self._two_level
+        length = x.numel()
+        xb = F.pad(x.to(torch.bfloat16), (0, (-length) % two.ici))
+        red = reduce_scatter_sum(xb, two.host_group, two.ici,
+                                 self._backend).float()
+        if two.dcn > 1:
+            red = self._quantized_sum(red, bits=8, group=two.cross_group,
+                                      m=two.dcn)
+        out = _collective("all_gather", red.to(torch.bfloat16),
+                          self._backend, two.ici, group=two.host_group)
+        return out.float()[:length]
 
     def _adasum_world(self) -> int:
         world = self._world
@@ -351,7 +506,8 @@ class Executor:
         one (quantized wires are bypassed)."""
         world = self._adasum_world()
         length = tensor.numel()
-        self._record_wire("", length, tensor.dtype)
+        self._record_wire("", length, tensor.dtype,
+                          "ring" if world > 1 else None)
         if world == 1:
             return tensor.clone()
         buf = self._collective("all_gather", tensor.reshape(1, -1))
@@ -374,7 +530,8 @@ class Executor:
         parts = list(parts) if parts is not None else [None] * len(tensors)
         world = self._adasum_world()
         for t in tensors:
-            self._record_wire("", t.numel(), t.dtype)
+            self._record_wire("", t.numel(), t.dtype,
+                              "ring" if world > 1 else None)
         if world == 1:
             return [t.clone() for t in tensors]
         bufs, owner = [], []  # one [world, n] row set a member
@@ -394,11 +551,18 @@ class Executor:
         return [(o[0] if len(o) == 1 else torch.cat(o)).reshape(t.shape)
                 for o, t in zip(outs, tensors)]
 
-    def _quantized_sum(self, x: torch.Tensor, bits: int) -> torch.Tensor:
-        """Quantized allreduce (sum) of the flat f32 ``x``: the reference's
-        ``q_hop``, packed (int4 always, int8 under HOROVOD_PACKED_WIRE) or
-        unpacked."""
-        m = self._world
+    def _quantized_sum(self, x: torch.Tensor, bits: int, group=None,
+                       m: Optional[int] = None) -> torch.Tensor:
+        """Quantized allreduce (sum) of the flat f32 ``x`` over ``group``
+        of ``m`` ranks (default: the engine's group, every rank): the
+        reference's ``q_hop``, packed (int4 always, int8 under
+        HOROVOD_PACKED_WIRE) or unpacked."""
+        if m is None:
+            group, m = self._group, self._world
+
+        def coll(kind, t):
+            return _collective(kind, t, self._backend, m, group=group)
+
         block = comp.block_size()
         packed = bits == 4 or os.environ.get(
             "HOROVOD_PACKED_WIRE", "").lower() in ("1", "on", "true")
@@ -407,7 +571,7 @@ class Executor:
         chunk = -(-chunk // block) * block
         padded = chunk * m
         if padded != ln:
-            x = torch.nn.functional.pad(x, (0, padded - ln))
+            x = F.pad(x, (0, padded - ln))
         nb = chunk // block
         if packed:
             if bits == 4:
@@ -415,24 +579,23 @@ class Executor:
             else:
                 quant_pack, unpack = ck.int8_quantize_pack_2d, ck.int8_unpack
             p = quant_pack(x.reshape(padded // block, block))
-            wt = self._collective("all_to_all", p)
+            wt = coll("all_to_all", p)
             q2, s2 = unpack(wt)
             red = self._dequant_sum(q2.reshape(m, nb, block),
                                     s2.reshape(m, nb, 1)).reshape(chunk)
             rp = quant_pack(red.reshape(nb, block))
-            gp = self._collective("all_gather", rp)
+            gp = coll("all_gather", rp)
             rq, rs = unpack(gp)
             out = (rq.float() * rs).reshape(padded)
         else:
             q, s = comp.quantize_blocks(x, block)
-            qt = self._collective("all_to_all", q.reshape(m, chunk))
-            st = self._collective("all_to_all", s.reshape(m, nb))
+            qt = coll("all_to_all", q.reshape(m, chunk))
+            st = coll("all_to_all", s.reshape(m, nb))
             red = self._dequant_sum(qt.reshape(m, nb, block),
                                     st[..., None]).reshape(chunk)
             rq, rs = comp.quantize_blocks(red, block)
-            out = comp.dequantize_blocks(
-                self._collective("all_gather", rq),
-                self._collective("all_gather", rs), block=block)
+            out = comp.dequantize_blocks(coll("all_gather", rq),
+                                         coll("all_gather", rs), block=block)
         return out[:ln] if padded != ln else out
 
     @staticmethod

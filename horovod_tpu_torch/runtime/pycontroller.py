@@ -83,13 +83,18 @@ def validate(name: str, ranks: Dict[int, _Meta], world: int,
          f"Mismatched collective operations for tensor '{name}'"),
         (lambda m: m.dtype, f"Mismatched data types for tensor '{name}'"),
         (lambda m: (m.average, m.prescale, m.postscale),
-         f"Mismatched reduction op/scale factors for tensor '{name}'"),
-        (lambda m: m.compression,
-         f"Mismatched compression for tensor '{name}': set "
-         "HOROVOD_COMPRESSION identically on every rank"))
+         f"Mismatched reduction op/scale factors for tensor '{name}'"))
     for field, message in checks:
         if differ(field):
             return fail(message, field)
+    # ranks racing an adaptive decision propose different "adaptive:<mode>"
+    # grids, which resolve_compression settles; any other mismatch
+    # (static modes, or adaptive on some ranks only) is a config error
+    if differ(lambda m: m.compression) and not all(
+            m.compression.startswith("adaptive:") for m in metas):
+        return fail(f"Mismatched compression for tensor '{name}': set "
+                    "HOROVOD_COMPRESSION identically on every rank",
+                    lambda m: m.compression or "none")
     a2a_ragged = e0.type == RequestType.ALLTOALL and e0.splits is not None
     if e0.type in (RequestType.ALLREDUCE, RequestType.ADASUM,
                    RequestType.BROADCAST) or (
@@ -147,6 +152,21 @@ def validate(name: str, ranks: Dict[int, _Meta], world: int,
                               RequestType.ALLTOALL):
         return f"{e0.type.name} is not supported while a rank has joined."
     return None
+
+
+_ADAPTIVE_ORDER = {"adaptive:int4": 0, "adaptive:int8": 1,
+                   "adaptive:bf16": 2}
+
+
+def resolve_compression(metas) -> str:
+    """The negotiated wire of one tensor: the ranks' common proposal, or
+    of different ``adaptive:<mode>`` proposals the least aggressive (int4
+    < int8 < bf16), so that no rank is sent below the precision it asked
+    for (the reference's coordinated plane, ``_resolve_compression``)."""
+    wires = {m.compression for m in metas}
+    if len(wires) == 1:
+        return wires.pop()
+    return max(wires, key=lambda w: _ADAPTIVE_ORDER.get(w, 2))
 
 
 class PyController:

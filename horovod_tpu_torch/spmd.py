@@ -55,7 +55,7 @@ from .ops import compression as comp
 from .ops import cuda_kernels as ck
 from .optim import zero
 from .optim.fused import FusedAdamW
-from .runtime.executor import _collective, _staged
+from .runtime.executor import _collective, _staged, group_ranks
 
 
 def _world() -> tuple:
@@ -175,18 +175,21 @@ def reset_hop_bytes() -> None:
     _hops["sent"] = 0
 
 
-def _exchange(t: torch.Tensor, to_rank: int, from_rank: int) -> torch.Tensor:
+def _exchange(t: torch.Tensor, to_rank: int, from_rank: int,
+              group=None) -> torch.Tensor:
     """One hop: send ``t`` to global rank ``to_rank`` and receive a tensor
     of its shape and dtype from ``from_rank``, both posted before either
-    waits; the result on ``t``'s device."""
+    waits, on ``group`` (None: the default group); the result on ``t``'s
+    device."""
     _, _, backend = _world()
     dev = t.device
     send = _staged(t, backend)
     _hops["sent"] += 1
     _hops["bytes"] += send.numel() * send.element_size()
     out = torch.empty_like(send)
-    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to_rank),
-                                    dist.P2POp(dist.irecv, out, from_rank)])
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, to_rank, group),
+        dist.P2POp(dist.irecv, out, from_rank, group)])
     for w in works:
         w.wait()
     return out.to(dev)
@@ -459,7 +462,8 @@ def quantized_allreduce(x: torch.Tensor, op: int = Average,
 
 def quantized_allreduce_tree(x: torch.Tensor, op: int = Average,
                              wire: Optional[str] = None,
-                             block: Optional[int] = None) -> torch.Tensor:
+                             block: Optional[int] = None,
+                             group=None) -> torch.Tensor:
     """Recursive halving / doubling allreduce: ``log2(world)`` exchanges
     with the partner ``rank ^ d`` at distances ``world/2, ..., 1``, each
     shipping the half of the window the partner keeps (packed rows on a
@@ -467,11 +471,26 @@ def quantized_allreduce_tree(x: torch.Tensor, op: int = Average,
     doubling exchanges forward the owners' packed bytes verbatim, so the
     result is bit-identical on every rank. The ring on a non-power-of-2
     world; the exact :func:`allreduce` for payloads the wire cannot carry
-    or non-float ones."""
+    or non-float ones.
+
+    ``group`` (the engine's tree runs on its own group) takes the exact
+    wire, a float payload and a power-of-2 group of at least 2; its
+    exchanges go to the members' global ranks."""
     wire = gspmd_wire(wire)
     _no_adasum(op, "tree allreduce")
     block = _wire_block(block)
-    m, p, _ = _world()
+    if group is None:
+        m, p, _ = _world()
+        ranks = range(m)
+    else:
+        ranks = group_ranks(group)
+        m, p = len(ranks), ranks.index(dist.get_rank())
+        if (m & (m - 1) or m == 1 or wire
+                or not x.dtype.is_floating_point):
+            raise ValueError(
+                f"the tree over a group takes the exact wire, a float "
+                f"payload and a power-of-2 group of at least 2; got wire "
+                f"{wire!r}, {x.dtype}, {m} ranks")
     if m & (m - 1) or m == 1:
         return quantized_allreduce(x, op, wire, block)
     if wire in _GSPMD_WIRES and not _wire_eligible(x.numel(), x.dtype, wire,
@@ -492,12 +511,13 @@ def quantized_allreduce_tree(x: torch.Tensor, op: int = Average,
         half = win.numel() // 2
         lower, upper = win[:half], win[half:]
         keep, send = (upper, lower) if (p // d) % 2 else (lower, upper)
+        peer = ranks[p ^ d]
         if quant:
             q, scales = unpack(_exchange(pack(send.reshape(-1, block)),
-                                         p ^ d, p ^ d))
+                                         peer, peer, group))
             win = _dequant_add(q, scales, keep)
         else:
-            win = keep + _exchange(send.contiguous(), p ^ d, p ^ d)
+            win = keep + _exchange(send.contiguous(), peer, peer, group)
     if quant:  # doubling: the owners' packed rows, forwarded verbatim
         rows = chunk // block
         packed = pack(win.reshape(-1, block))
@@ -513,8 +533,9 @@ def quantized_allreduce_tree(x: torch.Tensor, op: int = Average,
         lo = (p // d) * d
         seg = buf[lo * unit:(lo + d) * unit]
         other = lo ^ d
+        peer = ranks[p ^ d]
         buf[other * unit:(other + d) * unit] = _exchange(seg.contiguous(),
-                                                         p ^ d, p ^ d)
+                                                         peer, peer, group)
     out = _decode(*unpack(buf))[:num] if quant else buf[:num]
     if op == Average:
         out = _mean(out, m)
@@ -594,14 +615,21 @@ def gspmd_bytes() -> dict:
 
 
 def gspmd_algorithms() -> dict:
-    """The last algorithm the quantized step used, by payload-size class
-    (``ops/adaptive.size_class`` of its f32 bytes)."""
+    """The last algorithm a quantized step or an engine allreduce used, by
+    payload-size class (``ops/adaptive.size_class`` of its f32 bytes)."""
     return dict(_algo_last)
 
 
 def reset_accounting() -> None:
     _gspmd_bytes.update(wire=0, exact=0)
     _algo_last.clear()
+
+
+def _note_algorithm(algorithm: str, total: int) -> None:
+    """Record ``algorithm`` as the last one of the payload-size class of
+    ``total`` f32 elements (the compiled plane's rounds and the engine's
+    allreduces alike)."""
+    _algo_last[adaptive.size_class(total * 4)] = algorithm
 
 
 def _record_gspmd_wire(total: int, wire: str, world: int, block: int,
@@ -611,7 +639,7 @@ def _record_gspmd_wire(total: int, wire: str, world: int, block: int,
         total, wire, world, block, algorithm=algorithm, hosts=hosts)
     _gspmd_bytes["exact"] += comp.gspmd_wire_footprint(
         total, "none", world, block, algorithm=algorithm, hosts=hosts)
-    _algo_last[adaptive.size_class(total * 4)] = algorithm
+    _note_algorithm(algorithm, total)
 
 
 # ------------------------------------------------------------ the step

@@ -1044,3 +1044,41 @@ def test_hop_dequantize_add_on_the_card_is_one_f32_rounding():
     assert got.dtype == torch.float32 and got.shape == want.shape
     ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"))) - want.abs()
     assert bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("mode,bits", [("int4", 4), ("int8", 8),
+                                       ("bf16", 16)])
+def test_adaptive_roundtrip_and_observation_on_the_card(mode, bits,
+                                                        monkeypatch):
+    """The adaptive wire's error-feedback roundtrip at the selector's most
+    aggressive grid: on the card (one grouped #1 and one #2 at 8 bits)
+    bit for bit the CPU twin's; the selector observes a CUDA tensor as its
+    CPU copy (only the sample crosses to the host)."""
+    import numpy as np
+
+    from horovod_tpu_torch.ops import adaptive
+    from horovod_tpu_torch.ops.compression import AdaptiveCompressor
+
+    monkeypatch.setenv("HOROVOD_ADAPTIVE_INTERVAL", "1")
+    monkeypatch.setenv("HOROVOD_ADAPTIVE_TOL",
+                       "0.001" if mode == "bf16" else "0.2")
+    adaptive.reset()
+    AdaptiveCompressor.reset()
+    g = torch.randn(8192, generator=_gen(), device="cuda")
+    AdaptiveCompressor.observe("b", g ** 3 if mode == "int8" else g)
+    cpu = adaptive.BitwidthSelector()
+    cpu.observe("b", (g ** 3 if mode == "int8" else g).cpu())
+    assert AdaptiveCompressor.selector().decisions() == cpu.decisions() \
+        == {"b": mode}
+    xs = [torch.randn(n, generator=_gen(), device="cuda") * 10.0 ** e
+          for n, e in ((5000, -2), (256, 0), (77, 1))]
+    ck.reset_launch_counts()
+    ys = AdaptiveCompressor.roundtrip_many(xs)
+    if bits == 8:
+        counts = ck.launch_counts()
+        assert counts["int8_quantize_2d"] == counts["int8_dequantize_2d"] == 1
+    twins = AdaptiveCompressor.roundtrip_many([x.cpu() for x in xs])
+    for y, t in zip(ys, twins):
+        assert np.array_equal(y.cpu().numpy(), t.numpy())
+    adaptive.reset()
+    AdaptiveCompressor.reset()
