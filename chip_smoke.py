@@ -134,9 +134,9 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 6b. runs ring and Ulysses attention on world size 4 (gloo, one card) over a
    ``[1, 16384, 16, 64]`` bf16 sequence, forward and backward, against
    K5/K7 on the whole sequence, with the launches per rank;
-6c. trains GPT-2-medium widths at 8 layers on a dp=1 x sp=4 grid over a
-   16384-token sequence for 2 steps through ``make_sp_train_step`` (32 K6
-   and 32 K7 launches a step a rank) and checks bit-identical parameters
+6c. trains GPT-2-medium widths at 4 layers on a dp=1 x sp=4 grid over a
+   16384-token sequence for 2 steps through ``make_sp_train_step`` (16 K6
+   and 16 K7 launches a step a rank) and checks bit-identical parameters
    and agreement with one world-1 step on the whole sequence, whose
    attention is PyTorch's own; times a ring hop, the gradient allreduce
    and the step's gradient mean per tensor and in 25 MiB buckets;
@@ -159,8 +159,8 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    p's chunk against the f64 dense sum, the unfused reference (two faulted
    rings, one missing a partial and one adding in float8, must fail the
    same bound), 4 K10 launches a call a rank, and the time of a call;
-7c. trains GPT-2-medium widths at 8 layers on a dp=1 x tp=4 grid, global
-   batch 8 x 1024, for 2 steps through ``make_tp_train_step`` (8 K5 and 8
+7c. trains GPT-2-medium widths at 4 layers on a dp=1 x tp=4 grid, global
+   batch 8 x 1024, for 2 steps through ``make_tp_train_step`` (4 K5 and 4
    K7 launches a step a rank, on a rank's 4 heads) and checks replicated
    parameters bit-identical on all ranks and agreement with one world-1
    step, whose attention is PyTorch's own; peak memory a rank;
@@ -169,13 +169,41 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    ``make_hybrid_train_step`` (ring attention: K6 / K7), each tensor shard
    bit-identical on the ranks that hold it.
 
+8a. trains lm_bench's Switch-MoE block (``train.synthetic_moe_train``:
+   embed, top-1 routed expert MLP, tied head; d_model 1024, 4x hidden,
+   vocab 32768, 8 experts, 65,536 tokens a step, f32, Adam) at world size 1,
+   exact dispatch and capacity at CF 8, 2 + 3 steps each (the exchange is
+   the exact all_to_all at ep = 1), the first step's MoE output and loss
+   of the two held to each other;
+8b. runs the same block on a dp=2 x ep=2 grid (4 gloo processes sharing
+   the card): the quantized all_to_all at the step's ``[E, C, d]`` payload
+   against the exact exchange and its packed rows (#3, #4) against the
+   twin's; exact, capacity, capacity-int8 and capacity-int4 dispatch (CF
+   1.25), 1 + 2 steps each, and capacity at CF 8 for one step: replicated
+   parameters bit-identical on all ranks and each expert shard on its dp
+   replicas, the error-feedback residual nonzero both ways, the hops'
+   bytes a step equal to ``moe_wire_footprint``, the wire kernels' launches
+   a step a rank (counters and a traced step), the CF-8 loss against exact
+   and 8a's;
+8c. trains GPT-2-medium's 24 blocks as a GPipe pipeline of 4 stages of 6
+   on pp = 4 (gloo, one card), batch 8 x 1024, bf16, 8 microbatches, 2
+   AdamW steps (66 K5 and 66 K7 launches a step a rank), the embedding and
+   tied head on every rank; the first step's loss and every gradient held
+   to the 24 blocks run in sequence in one process.
+Phases 8a-8c run first, while the script's own process holds almost
+nothing on the card.
+
 ``--fault skip-hop`` or ``--fault shift-k-off`` breaks ring attention on
 purpose and runs phases 6c and 6d only; ``--fault drop-tp-reduce`` makes
 block 0's row-parallel mlp_out skip its sum over tp and runs phases 7c and
 7d only; ``--fault flip-byte`` flips one byte of one hop of every case of
 phase 3c and runs that phase only; ``--fault zero1`` runs phase 3d's
 ZeRO-1 step with its gradient not averaged, then with its optimizer step
-skipped. Each shows that the phases' agreement
+skipped; ``--fault moe-skip-dp-sum`` (expert gradients not summed over
+dp) and ``--fault a2a-swap-peers`` (the packed exchange delivers two
+peers' rows swapped) run phase 8b only, ``--fault pipe-skip-stage``
+(stage 0's output skips stage 1) phase 8c only. Each shows that the
+phases' agreement
 checks fail a wrong program: it exits 0 when every phase (or case) fails
 them.
 
@@ -194,6 +222,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from multiprocessing import get_context
 
@@ -1718,7 +1747,7 @@ def phase_compiled_lm(engine: dict) -> dict:
                f"equal {agree['bit_equal']}" if agree else "")
             + f"; {r['seconds']:.1f} s on {CARD}: ok={good}")
         out[label] = r
-        del tr
+        del tr, ts  # the step holds its graph's memory pool
         release()
     if not ok:
         raise AssertionError("phase 5e, the compiled LM step, failed its "
@@ -3762,8 +3791,9 @@ def phase_tp_train(label: str, dp: int, tp: int, sp: int, layers: int,
 
 # the (dp, sp) runs of phases 6c and 6d, the (dp, tp, sp) runs of 7c and
 # 7d: (dp, [tp,] sp, layers, global batch, sequence); 6c and 7c at
-# GPT-2-medium's widths cut to LONG_LAYERS of its 24 layers
-LONG_LAYERS = 8
+# GPT-2-medium's widths cut to LONG_LAYERS of its 24 layers (to pay for
+# the later phases' time; PERF.md)
+LONG_LAYERS = 4
 SP_RUNS = {"6c": (1, RING["sp"], LONG_LAYERS, 1, RING["seq"]),
            "6d": (2, 2, 2, 2, RING["seq"] // RING["sp"])}
 TP_RUNS = {"7c": (1, TP["tp"], 1, LONG_LAYERS, TP["batch"],
@@ -3788,20 +3818,647 @@ def fault_check(fault: str) -> int:
     return 0 if all(any(c.values()) for c in caught.values()) else 1
 
 
+# ------------------------------------------------- 8a-8c: MoE and pipeline
+# lm_bench --moe's widths on the TPU (benchmarks/lm_bench.py:119-127): one
+# weight-tied MoE block, d_model 1024, 4x hidden, vocab 32768, 8 experts,
+# 65,536 global tokens a step, CF 1.25, f32; "ample" CF 8 drops nothing
+MOE = dict(tokens=65536, cf=1.25, ample_cf=8.0)
+# phase 8b's ep axis (dp = 4 / ep ranks) and global tokens (cut to 16,384
+# if the phase passes 120 s)
+MOE_GRID = dict(ep=2, tokens=65536)
+MOE_CONFIGS = ("exact", "capacity", "capacity-int8", "capacity-int4")
+# the quantized exchange against the exact one at the step's [E, C, d]
+# payload: max |diff| over max |exact| (tests/test_moe.py:140-150)
+MOE_A2A_TOL = {"int8": 0.02, "int4": 0.2}
+# f32 agreement, relative: 8a's capacity (CF 8) against exact dispatch,
+# the MoE output y over max |y| and the first loss; 8b's capacity-off run
+# at CF 8 against 8a's first exact loss
+MOE_F32_TOL = 1e-5
+# wire kernel launches a capacity step a rank (dispatch + combine): the
+# pack, and the error-feedback residual's quantize and dequantize (int4's
+# residual quantizes in plain torch, ops/compression.py)
+MOE_PER_STEP = {"capacity-int8": {"int8_quantize_pack_2d": 2,
+                                  "int8_quantize_2d": 2,
+                                  "int8_dequantize_2d": 2},
+                "capacity-int4": {"int4_quantize_pack_2d": 2,
+                                  "int8_dequantize_2d": 2}}
+# profiler kernel names: #1 / #3 (the tile kernel they share, the general
+# loop, #3's own), #4, #2
+MOE_TRACE = {"int8 quantize (#1, #3)": WIRE_Q + ("int8_quant_pack",),
+             "int4 pack (#4)": ("int4_quant_pack",),
+             "dequantize (#2)": ("int8_dequant",)}
+MOE_TRACE_WANT = {"capacity-int8": {"int8 quantize (#1, #3)": 4,
+                                    "int4 pack (#4)": 0,
+                                    "dequantize (#2)": 2},
+                  "capacity-int4": {"int8 quantize (#1, #3)": 0,
+                                    "int4 pack (#4)": 2,
+                                    "dequantize (#2)": 2}}
+MOE_FAULTS = ("moe-skip-dp-sum", "a2a-swap-peers")
+
+
+@contextmanager
+def expandable_segments():
+    """Processes spawned inside start with expandable segments in their
+    caching allocator, so each keeps little memory reserved but unused:
+    8b's four ranks under exact dispatch need 17.8 GiB each, and did not
+    fit on one card without."""
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+
+
+def moe_world1_worker() -> dict:
+    """Phase 8a in its own process at world 1: exact dispatch and capacity
+    (CF 8, the exact exchange: an ep axis of one rank) held to each other
+    on the first step's MoE output y and loss, then ``synthetic_moe_train``
+    of each for 2 + 3 steps."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.parallel import expert as epar
+    from horovod_tpu_torch.train import MoETrainer, synthetic_moe_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    tr = MoETrainer("exact", tokens=MOE["tokens"], seed=0)
+    with torch.no_grad():
+        h = tr.params["emb"][tr.batch[0]]
+        y_ex, aux_ex = epar.ExactDispatch(tr.mesh)(tr.params, h)
+        y_cap, aux_cap = epar.SwitchDispatch(tr.mesh, MOE["ample_cf"], "",
+                                             None, None)(tr.params, h)
+        y_rel = float((y_cap - y_ex).abs().max() / y_ex.abs().max())
+        aux_rel = float((aux_cap - aux_ex).abs() / aux_ex.abs())
+    del tr, h, y_ex, y_cap
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, cf in (("exact", MOE["cf"]), ("capacity", MOE["ample_cf"])):
+        ck.reset_launch_counts()
+        runs[name] = synthetic_moe_train(
+            name, steps=3, warmup=2, tokens=MOE["tokens"],
+            capacity_factor=cf, seed=0)
+        runs[name]["counts"] = ck.launch_counts()
+        torch.cuda.empty_cache()
+    return {"y_rel": y_rel, "aux_rel": aux_rel, "runs": runs,
+            "world": hvd.size(), "seconds": time.perf_counter() - t0}
+
+
+def phase_moe_world1() -> dict:
+    """Phase 8a: lm_bench's MoE block at full width on one card."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    with expandable_segments():
+        r, = testing.run_cluster(moe_world1_worker, np=1, device="cuda",
+                                 timeout=600)
+    ex, cap = r["runs"]["exact"], r["runs"]["capacity"]
+    loss_rel = abs(cap["losses"][0] - ex["losses"][0]) / abs(ex["losses"][0])
+    no_kernel = all(v == 0 for run in r["runs"].values()
+                    for v in run["counts"].values())
+    finite = all(math.isfinite(v) for run in r["runs"].values()
+                 for v in run["losses"])
+    ok = (r["y_rel"] <= MOE_F32_TOL and loss_rel <= MOE_F32_TOL
+          and r["aux_rel"] <= MOE_F32_TOL and no_kernel and finite
+          and cap["drop_rate"] == 0 and r["world"] == 1)
+    seconds = time.perf_counter() - t0
+
+    def desc(run):
+        return (f"{run['tokens_per_sec']:.1f} tokens/s, {run['step_ms']:.2f} "
+                f"ms a step, peak memory "
+                f"{run['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+                f"{[round(v, 5) for v in run['losses']]}")
+
+    log(f"phase 8a: MoE block at world 1 (d_model 1024, 4x hidden, vocab "
+        f"32768, 8 experts, {MOE['tokens']} tokens a step, f32, Adam 1e-2; "
+        f"ep = 1, so the exchange is the exact all_to_all, the quantized "
+        f"wire's fallback at an axis of one rank: no wire kernel launched "
+        f"{no_kernel}): exact {desc(ex)}; capacity (CF "
+        f"{MOE['ample_cf']:g}, drop rate {cap['drop_rate']:.4f}, imbalance "
+        f"{cap['imbalance']:.3f}) {desc(cap)}; first step, capacity against "
+        f"exact: y max diff {r['y_rel']:.3e} of max |y|, aux "
+        f"{r['aux_rel']:.3e}, loss {loss_rel:.3e} (each <= "
+        f"{MOE_F32_TOL:g}); {seconds:.1f} s on {CARD}: ok={ok}")
+    if not ok:
+        raise AssertionError("phase 8a (MoE at world 1) failed its checks")
+    return {**r, "loss_rel": loss_rel, "seconds": seconds}
+
+
+def inject_moe_fault(kind: str) -> None:
+    """Break the MoE path on purpose in this process (``--fault``):
+    ``moe-skip-dp-sum`` leaves the expert gradients unsummed over dp;
+    ``a2a-swap-peers`` makes the packed exchange deliver the first two
+    peers' row groups swapped."""
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.parallel import expert as epar
+    from horovod_tpu_torch.parallel._comm import _exchange
+
+    if kind == "moe-skip-dp-sum":
+        def unsummed(params, mesh):
+            for path, p in epar._paths(params):
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.grad = (g if epar.ep_param_spec(path)
+                          else _exchange("all_reduce", g, None)) / mesh.world
+
+        epar.reduce_capacity_gradients = unsummed
+    elif kind == "a2a-swap-peers":
+        real = spmd._a2a_packed
+
+        def swapped(packed, group, m):
+            got = real(packed, group, m)
+            k = got.shape[0] // m
+            return torch.cat([got[k:2 * k], got[:k], got[2 * k:]])
+
+        spmd._a2a_packed = swapped
+
+
+def kernel_counts(prof, names: dict) -> dict:
+    """Kernel launches in a torch.profiler trace, by group of ``names``
+    (substrings of the kernel's name)."""
+    from torch.autograd import DeviceType
+
+    out = {k: 0 for k in names}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for group, pats in names.items():
+            if any(p in evt.key for p in pats):
+                out[group] += evt.count
+    return out
+
+
+def moe_grid_worker(tokens: int, fault=None) -> dict:
+    """One rank of phase 8b, a dp=2 x ep=2 grid on one card over gloo:
+    the quantized exchange at the step's payload against the exact one, its
+    packed rows against the twin's, and its error-feedback residual's #1 /
+    #2 and value against the plain ones; then each of ``MOE_CONFIGS`` for 1
+    + 2 steps (launches, hop bytes and step ms per step, a traced step of
+    each quantized wire) and capacity off at CF 8 for one step."""
+    import hashlib
+
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import spmd
+    from horovod_tpu_torch.ops import compression as comp
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.parallel import expert as epar
+    from horovod_tpu_torch.parallel._comm import all_to_all
+    from horovod_tpu_torch.train import MoETrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if fault:
+        inject_moe_fault(fault)
+    marks = {"start": time.time()}
+    ep = MOE_GRID["ep"]
+    tr = MoETrainer("capacity", tokens=tokens, ep=ep, seed=0)
+    mesh = tr.mesh
+    res = {"grid": [mesh.dp_rank, mesh.ep_rank], "backend": hvd.backend(),
+           "a2a": {}, "runs": {}}
+    with torch.no_grad():
+        n = tokens // mesh.world
+        h = tr.params["emb"][tr.batch[0][mesh.rank * n:(mesh.rank + 1) * n]]
+        buf = epar.SwitchDispatch(mesh, MOE["cf"], "", None,
+                                  None).route(tr.params, h)[-1]
+        exact = all_to_all(buf, mesh.ep_group)
+        per = buf.numel() // ep
+        rows = F.pad(buf.reshape(ep, per), (0, (-per) % BLOCK)).reshape(
+            -1, BLOCK).contiguous()
+        zero = torch.zeros_like(buf)
+        flat = (buf + zero).reshape(ep, per)  # the function's corrected
+        for wire in ("int8", "int4"):
+            got, new_ef = spmd.quantized_all_to_all(
+                buf, mesh.ep_group, wire, BLOCK, ef=zero)
+            pack = getattr(ck, f"{wire}_quantize_pack_2d")
+            plain = getattr(ck, f"{wire}_quantize_pack_2d_plain")
+            # the residual's rows are the pack's: #1 (int8; int4's
+            # quantize is plain torch) and #2 against their twins, and the
+            # residual against the plain roundtrip, bit for bit
+            if wire == "int8":
+                q, s = ck.int8_quantize_2d_plain(rows)
+                q1, s1 = ck.int8_quantize_2d(rows)
+                quantize_equal = bits_equal(q1, q) and bits_equal(s1, s)
+            else:
+                q, s = ck.quant_rows(rows, ck.INT4_QMAX)
+                quantize_equal = True
+            deq = ck.int8_dequantize_2d_plain(q, s)
+            want_ef = (flat - deq.reshape(ep, -1)[:, :per]).reshape(buf.shape)
+            res["a2a"][wire] = {
+                "rel": float((got - exact).abs().max() / exact.abs().max()),
+                "byte_equal": bits_equal(pack(rows), plain(rows)),
+                "residual_equal": (
+                    quantize_equal
+                    and bits_equal(ck.int8_dequantize_2d(q, s), deq)
+                    and bits_equal(new_ef, want_ef)),
+                "payload": list(buf.shape), "rows": rows.shape[0]}
+    del tr, h, buf, exact, rows, zero, flat, got, new_ef, deq, want_ef
+    torch.cuda.empty_cache()
+    marks["a2a"] = time.time()
+
+    runs = [(name, MOE["cf"], 3) for name in MOE_CONFIGS]
+    runs.append(("capacity-ample", MOE["ample_cf"], 1))
+    counts = {k: 0 for k in ck.launch_counts()}
+    for name, cf, steps in runs:
+        dispatch = "capacity" if name == "capacity-ample" else name
+        tr = MoETrainer(dispatch, tokens=tokens, ep=ep, seed=0,
+                        capacity_factor=cf)
+        torch.cuda.reset_peak_memory_stats()
+        run = {"losses": [], "step_ms": [], "hop_bytes": [], "per_step": []}
+        ck.reset_launch_counts()
+        for _ in range(steps):
+            before = ck.launch_counts()
+            sent = spmd.hop_bytes()
+            tr.sync()
+            t0 = time.perf_counter()
+            run["losses"].append(float(tr.step()))
+            tr.sync()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["hop_bytes"].append(spmd.hop_bytes() - sent)
+            after = ck.launch_counts()
+            run["per_step"].append({k: after[k] - before[k] for k in after
+                                    if after[k] - before[k]})
+        if name in MOE_TRACE_WANT:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                tr.step()
+                tr.sync()
+            run["trace"] = kernel_counts(prof, MOE_TRACE)
+        # the counters were reset before this run's first step: they hold
+        # its steps and its traced step, each launch once
+        for k, v in ck.launch_counts().items():
+            counts[k] += v
+        if tr.capacity:
+            load = tr.stats["load"].float()
+            run["drop_rate"] = float(tr.stats["dropped"]) / tr.n_tokens
+            run["imbalance"] = float(load.max() / load.mean())
+            ef = tr.opt_state[1]
+            run["ef_nonzero"] = [bool(ef[i].abs().max() > 0)
+                                 for i in range(2)]
+            run["per_peer"] = ef[0].numel() // ep
+            run["footprint"] = (comp.moe_wire_footprint(
+                run["per_peer"], tr.config["wire"], ep, BLOCK)
+                if tr.config["wire"] else 0)
+        digests = {}
+        for kind in ("replicated", "shard"):
+            hsh = hashlib.sha256()
+            for path, p in epar._paths(tr.params):
+                if bool(epar.ep_param_spec(path)) == (kind == "shard"):
+                    hsh.update("/".join(path).encode())
+                    hsh.update(p.detach().cpu().numpy().tobytes())
+            digests[kind] = hsh.hexdigest()
+        run.update(digests=digests, wire=tr.config["wire"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        res["runs"][name] = run
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        marks[name] = time.time()
+    res["counts"] = counts
+    res["marks"] = marks
+    return res
+
+
+def moe_grid_checks(ranks: list, world1_loss, same_tokens: bool) -> dict:
+    """Phase 8b's checks over the ranks' readings: name -> passed."""
+    runs = {name: [r["runs"][name] for r in ranks]
+            for name in ranks[0]["runs"]}
+    checks = {}
+    checks["1 quantized exchange against the exact"] = all(
+        r["a2a"][w]["rel"] < tol for r in ranks
+        for w, tol in MOE_A2A_TOL.items())
+    checks["2 packed rows byte-equal to the twin's"] = all(
+        r["a2a"][w]["byte_equal"] for r in ranks for w in MOE_A2A_TOL)
+    ample = runs["capacity-ample"][0]["losses"][0]
+    exact = runs["exact"][0]["losses"][0]
+    checks["3 capacity off at CF 8 against exact"] = (
+        abs(ample - exact) / abs(exact) <= MOE_F32_TOL
+        and (not same_tokens or world1_loss is None
+             or abs(ample - world1_loss) / abs(world1_loss) <= MOE_F32_TOL))
+    same = True
+    for name, rs in runs.items():
+        rep = {r["digests"]["replicated"] for r in rs}
+        shard = [r["digests"]["shard"] for r in rs]
+        same = (same and len(rep) == 1 and shard[0] == shard[2]
+                and shard[1] == shard[3] and shard[0] != shard[1])
+    checks["4 replicated leaves and expert shards agree"] = same
+    checks["5 error-feedback residual nonzero both ways (int8)"] = all(
+        all(r["ef_nonzero"]) for r in runs["capacity-int8"])
+    checks["5b residual's #1 / #2 and new_ef bit-equal to the plain ones"] = \
+        all(r["a2a"][w]["residual_equal"] for r in ranks for w in MOE_A2A_TOL)
+    checks["6 hop bytes a step = moe_wire_footprint"] = all(
+        all(b == r["footprint"] for b in r["hop_bytes"])
+        for name in MOE_PER_STEP for r in runs[name])
+    per_step = all(
+        s == MOE_PER_STEP.get(name, {}) for name, rs in runs.items()
+        for r in rs for s in r["per_step"])
+    traced = all(r["trace"] == MOE_TRACE_WANT[name]
+                 for name in MOE_TRACE_WANT for r in runs[name])
+    checks["7 wire kernel launches a step (counters, trace)"] = (
+        per_step and traced)
+    checks["finite losses"] = all(math.isfinite(v) for rs in runs.values()
+                                  for r in rs for v in r["losses"])
+    checks["grid and backend"] = (
+        [r["grid"] for r in ranks] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+        and all(r["backend"] == "gloo" for r in ranks))
+    return checks
+
+
+def phase_moe_grid(world1_loss=None, fault=None) -> dict:
+    """Phase 8b: ``moe_grid_worker`` on 4 ranks sharing the card over gloo
+    (dp=2 x ep=2). With ``fault``, the readings only: the caller checks
+    that some check fails."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    tokens = MOE_GRID["tokens"]
+    with expandable_segments():
+        ranks = testing.run_cluster(moe_grid_worker, np=4, device="cuda",
+                                    args=(tokens, fault), timeout=900)
+    seconds = time.perf_counter() - t0
+    checks = moe_grid_checks(ranks, world1_loss, tokens == MOE["tokens"])
+    ok = all(checks.values())
+    r0 = ranks[0]["runs"]
+
+    def desc(name):
+        rs = [r["runs"][name] for r in ranks]
+        peak = [round(r["peak_memory_bytes"] / 2**30, 2) for r in rs]
+        out = (f"{name}: losses {[round(v, 5) for v in rs[0]['losses']]}, "
+               f"step ms per rank "
+               f"{[[round(v, 1) for v in r['step_ms']] for r in rs]}, peak "
+               f"memory GiB {peak}")
+        if "drop_rate" in rs[0]:
+            out += (f", drop rate {rs[0]['drop_rate']:.4f}, imbalance "
+                    f"{rs[0]['imbalance']:.3f}")
+        if name in MOE_PER_STEP:
+            out += (f", launches a step {rs[0]['per_step']}, trace "
+                    f"{rs[0]['trace']}, hop bytes a step "
+                    f"{rs[0]['hop_bytes']} (catalog {rs[0]['footprint']}), "
+                    f"residual nonzero {[r['ef_nonzero'] for r in rs]}")
+        return out
+
+    a2a = {w: [round(r["a2a"][w]["rel"], 5) for r in ranks]
+           for w in MOE_A2A_TOL}
+    log(f"phase 8b{f' with fault {fault}' if fault else ''}: MoE block on "
+        f"dp=2 x ep=2 (gloo, one card), full widths, {tokens} global tokens, "
+        f"CF {MOE['cf']}: exchange payload "
+        f"{ranks[0]['a2a']['int8']['payload']} a rank, quantized against "
+        f"exact {a2a} (< {MOE_A2A_TOL}); capacity off at CF "
+        f"{MOE['ample_cf']:g} first loss "
+        f"{r0['capacity-ample']['losses'][0]:.6f} against exact "
+        f"{r0['exact']['losses'][0]:.6f} and 8a's "
+        f"{world1_loss}; " + "; ".join(desc(n) for n in MOE_CONFIGS)
+        + f"; checks {checks}; {seconds:.1f} s on {CARD}: ok={ok}")
+    if not ok and not fault:
+        raise AssertionError("phase 8b (MoE on a dp x ep grid) failed its "
+                             "checks")
+    return {"ranks": ranks, "checks": checks, "seconds": seconds,
+            "tokens": tokens}
+
+
+# phase 8c: GPT-2-medium's 24 blocks as 4 stages of 6 on pp = 4 (gloo, one
+# card), batch 8 x 1024, bf16, default attention (K5 / K7), 8 microbatches
+PIPE = dict(stages=4, microbatches=8, steps=2)
+# the pipeline's first step against the 24 blocks run in sequence in one
+# process, bf16: the loss, relative; each gradient's max |diff| over its
+# tensor's max |g| (stages, embedding, positions, final LayerNorm). On an
+# H100 80GB HBM3 at 700 W the sound run read a loss rel of 0 and gradients
+# up to 4.6e-3 (bf16 products of microbatch shapes), a stage skipped
+# 3.2e-4 and 1.0-1.45 (PERF.md)
+PIPE_LIMITS = (1e-5, 2e-2)
+
+
+def pipe_stage_tree(blocks, per: int) -> dict:
+    """The stacked ``[S, ...]`` stage tree of ``blocks``, ``per`` blocks a
+    stage, keyed as an ``nn.Sequential`` of ``per`` blocks names its
+    parameters."""
+    stages = [torch.nn.Sequential(*blocks[s * per:(s + 1) * per])
+              for s in range(len(blocks) // per)]
+    names = [n for n, _ in stages[0].named_parameters()]
+    return {n: torch.stack([dict(st.named_parameters())[n].detach()
+                            for st in stages]) for n in names}
+
+
+def pipe_worker(fault=None) -> dict:
+    """One rank of phase 8c: rank 0 first runs the 24 blocks in sequence
+    on the whole batch (its loss and gradients: each stage's go to its
+    rank); then ``make_pp_train_step`` for ``PIPE["steps"]`` AdamW steps,
+    launches counted from 0 just before them, the first step's loss and
+    gradients held to the sequential ones. ``fault`` ``pipe-skip-stage``:
+    stage 1 forwards its input unchanged, so stage 0's output skips it."""
+    import hashlib
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.parallel import pipeline as pp
+    from horovod_tpu_torch.train import synthetic_lm_tokens
+
+    marks = {"start": time.time()}
+    dev = hvd.device()
+    S, M = PIPE["stages"], PIPE["microbatches"]
+    per = MEDIUM["layers"] // S
+    mesh = pp.make_pp_mesh(S)
+    rank = mesh.pp_rank
+    cfg = dict(vocab_size=MEDIUM["vocab"], num_layers=MEDIUM["layers"],
+               num_heads=MEDIUM["heads"], d_model=MEDIUM["d"],
+               max_seq_len=MEDIUM["seq"], dtype=torch.bfloat16, seed=0)
+    toks = torch.from_numpy(synthetic_lm_tokens(
+        MEDIUM["batch"], MEDIUM["seq"], MEDIUM["vocab"], 0, 1)).to(dev)
+    x, y = toks[:, :-1], toks[:, 1:]
+    full = TransformerLM(**cfg)
+    stacked = pipe_stage_tree(full.blocks, per)
+    head_names = ("tok_emb.weight", "pos_emb", "ln_f.weight", "ln_f.bias")
+    names = list(stacked)
+    sizes = [stacked[n][0].numel() for n in names]
+    head_sizes = [dict(full.named_parameters())[n].numel()
+                  for n in head_names]
+    ref = {}
+    if rank == 0:
+        net = TransformerLM(**cfg).to(dev)
+        ref_loss = lm_loss(net(x), y)
+        ref_loss.backward()
+        flat = []
+        for s in range(S):
+            grads = dict(torch.nn.Sequential(
+                *net.blocks[s * per:(s + 1) * per]).named_parameters())
+            flat.append(torch.cat([grads[n].grad.float().reshape(-1).cpu()
+                                   for n in names]))
+        params = dict(net.named_parameters())
+        head = torch.cat([params[n].grad.float().reshape(-1).cpu()
+                          for n in head_names]
+                         + [ref_loss.detach().float().reshape(1).cpu()])
+        del net, grads, params, ref_loss
+        torch.cuda.empty_cache()
+        for s in range(1, S):
+            dist.send(flat[s], dst=s)
+        mine = flat[0]
+        del flat
+    else:
+        mine = torch.empty(sum(sizes))
+        dist.recv(mine, src=0)
+        head = torch.empty(sum(head_sizes) + 1)
+    dist.broadcast(head, src=0)
+    ref["loss"] = float(head[-1])
+    ref["stage"] = dict(zip(names, mine.split(sizes)))
+    ref["head"] = dict(zip(head_names, head[:-1].split(head_sizes)))
+    marks["reference"] = time.time()
+
+    template = torch.nn.Sequential(*full.blocks[:per]).to(dev)
+    stage = {k: v.detach().to(dev).requires_grad_()
+             for k, v in pp.shard_stage_params(stacked, mesh).items()}
+    fp = dict(full.named_parameters())
+    head_p = {n: fp[n].detach().to(dev).requires_grad_() for n in head_names}
+    ln_f = full.ln_f.to(dev)
+    del full, stacked
+
+    def stage_fn(p, act):
+        return functional_call(template, p, (act,))
+
+    if fault == "pipe-skip-stage" and rank == 1:
+        def stage_fn(p, act):  # noqa: F811
+            return act
+
+    def loss_head(acts, tgt):
+        hdn = functional_call(ln_f, {"weight": head_p["ln_f.weight"],
+                                     "bias": head_p["ln_f.bias"]}, (acts,))
+        logits = F.linear(hdn, head_p["tok_emb.weight"].to(torch.bfloat16))
+        return lm_loss(logits.float(), tgt)
+
+    opt = torch.optim.AdamW(list(stage.values()) + list(head_p.values()),
+                            lr=SP_LR, weight_decay=0.01, fused=True)
+    step = pp.make_pp_train_step(stage_fn, loss_head, opt, mesh, M)
+    t = x.shape[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launch_counts()
+    losses, step_ms, agree = [], [], None
+    for i in range(PIPE["steps"]):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        emb = (F.embedding(x, head_p["tok_emb.weight"]).to(torch.bfloat16)
+               + head_p["pos_emb"][:t].to(torch.bfloat16))
+        losses.append(float(step(stage, emb, y)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts_first = ck.launch_counts()
+            rel = {}
+            for n, g_ref in list(ref["stage"].items()) + list(
+                    ref["head"].items()):
+                g = head_p[n].grad if n in head_p else stage[n].grad
+                g = (g.float().reshape(-1).cpu() if g is not None
+                     else torch.zeros_like(g_ref))
+                rel[n] = float((g - g_ref).abs().max()
+                               / g_ref.abs().max().clamp_min(1e-30))
+            worst = max(rel, key=rel.get)
+            agree = {"loss": losses[0], "loss_ref": ref["loss"],
+                     "loss_rel": abs(losses[0] - ref["loss"])
+                     / abs(ref["loss"]),
+                     "grad_rel_max": rel[worst], "grad_rel_worst": worst}
+    marks["steps"] = time.time()
+    hsh = hashlib.sha256()
+    for n in head_names:
+        hsh.update(head_p[n].detach().float().cpu().numpy().tobytes())
+    return {"counts": ck.launch_counts(), "counts_first": counts_first,
+            "losses": losses, "step_ms": step_ms, "agreement": agree,
+            "head_sha256": hsh.hexdigest(), "rank": rank,
+            "backend": hvd.backend(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "marks": marks}
+
+
+def phase_pipeline(fault=None) -> dict:
+    """Phase 8c: ``pipe_worker`` on pp = 4 ranks sharing the card over
+    gloo. With ``fault``, the readings only: the caller checks that the
+    agreement fails."""
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    S, M, steps = PIPE["stages"], PIPE["microbatches"], PIPE["steps"]
+    ranks = testing.run_cluster(pipe_worker, np=S, device="cuda",
+                                args=(fault,), timeout=900)
+    seconds = time.perf_counter() - t0
+    per = MEDIUM["layers"] // S
+    ticks = M + S - 1
+    want = {"flash_attention_fwd": per * ticks,
+            "flash_attention_bwd": per * ticks}
+    launched = all(r["counts"][k] == steps * want.get(k, 0)
+                   for r in ranks for k in r["counts"])
+    loss_lim, grad_lim = PIPE_LIMITS
+    agree = {"loss": all(r["agreement"]["loss_rel"] <= loss_lim
+                         for r in ranks),
+             "gradients": all(r["agreement"]["grad_rel_max"] <= grad_lim
+                              for r in ranks)}
+    same_head = len({r["head_sha256"] for r in ranks}) == 1
+    same_loss = len({tuple(r["losses"]) for r in ranks}) == 1
+    finite = all(math.isfinite(v) for r in ranks for v in r["losses"])
+    ok = (launched and all(agree.values()) and same_head and same_loss
+          and finite and [r["rank"] for r in ranks] == list(range(S))
+          and all(r["backend"] == "gloo" for r in ranks))
+    seen = [{k: v / steps for k, v in r["counts"].items() if v}
+            for r in ranks]
+    grads = [(round(r["agreement"]["grad_rel_max"], 5),
+              r["agreement"]["grad_rel_worst"]) for r in ranks]
+    peak = [round(r["peak_memory_bytes"] / 2**30, 2) for r in ranks]
+    log(f"phase 8c{f' with fault {fault}' if fault else ''}: GPipe, "
+        f"GPT-2-medium's {MEDIUM['layers']} blocks as {S} stages of {per} "
+        f"on pp={S} (gloo, one card), batch {MEDIUM['batch']} x "
+        f"{MEDIUM['seq']} bf16, {M} microbatches, {steps} AdamW steps: "
+        f"launches per rank per step {seen} (want {want}); first step "
+        f"against the {MEDIUM['layers']} blocks in sequence: loss "
+        f"{[round(r['agreement']['loss'], 6) for r in ranks]} against "
+        f"{ranks[0]['agreement']['loss_ref']:.6f}, rel "
+        f"{max(r['agreement']['loss_rel'] for r in ranks):.3e} (<= "
+        f"{loss_lim:g}); gradients per rank "
+        f"{grads} of the tensor's max |g| (<= {grad_lim:g}); {agree}; head "
+        f"parameters bit-identical on all ranks {same_head}; losses "
+        f"{[round(v, 5) for v in ranks[0]['losses']]}; step ms per rank "
+        f"{[[round(v, 1) for v in r['step_ms']] for r in ranks]}; peak "
+        f"memory GiB {peak}; {seconds:.1f} s on {CARD}: ok={ok}")
+    if not ok and not fault:
+        raise AssertionError("phase 8c (the pipeline) failed its checks")
+    return {"ranks": ranks, "seconds": seconds, "agreement": agree}
+
+
+def moe_fault_check(fault: str) -> int:
+    """``--fault moe-skip-dp-sum`` / ``a2a-swap-peers`` (phase 8b) or
+    ``pipe-skip-stage`` (phase 8c): 0 when some check of the phase
+    fails."""
+    if fault == "pipe-skip-stage":
+        caught = {k: not v for k, v in
+                  phase_pipeline(fault=fault)["agreement"].items()}
+    else:
+        caught = {k: not v for k, v in
+                  phase_moe_grid(fault=fault)["checks"].items()}
+    print(json.dumps({"fault": fault, "caught": caught}), flush=True)
+    return 0 if any(caught.values()) else 1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH", default=None,
                         help="also write the full report to PATH as JSON")
     parser.add_argument("--fault",
-                        choices=sorted(FAULTS) + ["flip-byte", "zero1"],
+                        choices=sorted(FAULTS) + ["flip-byte", "zero1",
+                                                  "pipe-skip-stage",
+                                                  *MOE_FAULTS],
                         default=None,
                         help="break ring attention (skip-hop, shift-k-off: "
                         "phases 6c and 6d only), a row-parallel reduce "
                         "(drop-tp-reduce: phases 7c and 7d only) or one "
                         "byte of one hop of the compiled plane's allreduces "
                         "(flip-byte: phase 3c only), or plant wrong ZeRO-1 "
-                        "steps (zero1: phase 3d only) on purpose; exits 0 "
-                        "when each phase's agreement check fails")
+                        "steps (zero1: phase 3d only), the MoE path "
+                        "(moe-skip-dp-sum, a2a-swap-peers: phase 8b only) or "
+                        "the pipeline (pipe-skip-stage: phase 8c only) on "
+                        "purpose; exits 0 when each phase's agreement check "
+                        "fails")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3832,9 +4489,16 @@ def main(argv=None) -> int:
         return algo_fault_check()
     if args.fault == "zero1":
         return zero1_fault_check()
+    if args.fault in MOE_FAULTS + ("pipe-skip-stage",):
+        return moe_fault_check(args.fault)
     if args.fault:
         return fault_check(args.fault)
 
+    # phases 8a-8c first, while this process holds almost nothing on the
+    # card: 8b's four ranks need nearly all of it
+    moe1 = phase_moe_world1()
+    moe_grid = phase_moe_grid(moe1["runs"]["exact"]["losses"][0])
+    pipeline = phase_pipeline()
     kernels = phase_kernels(rate)
     kernels["adasum_combine_pairs"] = phase_adasum_kernel(rate)
     lm_kernels = phase_lm_kernels(rate)
@@ -3900,7 +4564,9 @@ def main(argv=None) -> int:
                for m in ("ring", "ulysses")]
             + [r["counts"] for r in sp_long["ranks"] + sp_grid["ranks"]]
             + [r["counts"] for r in mm_rs["ranks"] + tp_long["ranks"]
-               + tp_hybrid["ranks"]])
+               + tp_hybrid["ranks"]]
+            + [r["counts"] for r in moe1["runs"].values()]
+            + [r["counts"] for r in moe_grid["ranks"] + pipeline["ranks"]])
     for k in kernels.values():
         k["launches"] = sum(c[k["name"]] for c in runs)
     missing = [k for k, v in kernels.items() if v["launches"] == 0]
@@ -3921,7 +4587,8 @@ def main(argv=None) -> int:
               "ring_checks": ring["checks"], "sp_attention": sp_attention,
               "sp_long": sp_long, "sp_grid": sp_grid,
               "matmul_reduce_scatter": mm_rs, "tp": tp_long,
-              "hybrid": tp_hybrid}
+              "hybrid": tp_hybrid, "moe_world1": moe1, "moe_grid": moe_grid,
+              "pipeline": pipeline}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -1,6 +1,8 @@
 """Parameters of the Flax ResNet (``horovod_tpu/models/resnet.py``) and
 transformer LM (``horovod_tpu/models/transformer.py``) as a ``state_dict``
-of :mod:`.resnet` and :mod:`.transformer`.
+of :mod:`.resnet` and :mod:`.transformer`; the MoE layer's
+(``horovod_tpu/parallel/expert.py``) as the port's functional tree or
+``MoEMLP``'s ``state_dict``; stacked pipeline stages as tensors.
 
 Takes nested dicts of numpy arrays, so it needs no JAX: the caller turns its
 Flax variables into numpy first (``jax.tree_util.tree_map(np.asarray, ...)``).
@@ -103,3 +105,26 @@ def transformer_state_dict_from_flax(params: Dict) -> Dict:
             raise KeyError(f"unknown Flax module {top!r}")
     return out
 
+
+
+def moe_params_from_jax(tree):
+    """A nested dict (or list) of numpy arrays as the same tree of f32
+    torch tensors, layouts kept: the functional MoE tree of
+    ``init_moe_params`` (``x @ kernel``'s ``[d, E]`` router kernel), a
+    stacked ``[S, ...]`` pipeline tree, or one stage's."""
+    if isinstance(tree, dict):
+        return {k: moe_params_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(moe_params_from_jax(v) for v in tree)
+    return torch.tensor(np.ascontiguousarray(np.asarray(tree,
+                                                        dtype=np.float32)))
+
+
+def moe_state_dict_from_flax(params: Dict) -> Dict:
+    """``MoEMLP``'s Flax params (numpy) as the torch ``MoEMLP``'s
+    ``state_dict``: the router is an ``nn.Linear``, so its kernel ``[d,
+    E]`` becomes ``weight [E, d]``; ``w_in`` / ``w_out`` pass through."""
+    return {"router.weight": _tensor("kernel", params["router"]["kernel"]),
+            "router.bias": _tensor("bias", params["router"]["bias"]),
+            "w_in": _tensor("w_in", params["w_in"]),
+            "w_out": _tensor("w_out", params["w_out"])}

@@ -1,8 +1,9 @@
 """Parallelism beyond data parallelism (counterpart of
 ``horovod_tpu/parallel``): sequence parallelism by ring attention and by
 Ulysses, LM training over a (dp, sp) grid of processes, Megatron tensor
-parallelism over a (dp, tp) grid, the 3D (dp, tp, sp) hybrid, and the
-two-level (host, cross-host) allreduce."""
+parallelism over a (dp, tp) grid, the 3D (dp, tp, sp) hybrid, Switch MoE
+over a (dp, ep) grid, the GPipe pipeline over a pp axis, and the two-level
+(host, cross-host) allreduce."""
 
 from .hierarchical import (  # noqa: F401
     hierarchical_allreduce,
@@ -46,4 +47,17 @@ from .hybrid import (  # noqa: F401
     shard_data_hybrid,
     shard_opt_state_hybrid,
     shard_params_hybrid,
+)
+from .expert import (  # noqa: F401
+    MoEMLP,
+    make_dp_ep_mesh,
+    make_ep_train_step,
+    shard_params_ep,
+)
+from .pipeline import (  # noqa: F401
+    make_pipeline_fn,
+    make_pp_mesh,
+    make_pp_train_step,
+    shard_stage_params,
+    stack_stage_params,
 )

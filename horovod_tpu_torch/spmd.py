@@ -12,7 +12,8 @@ not capturable, so that step is eager). It bypasses the eager engine and
 Per-process forms of the reference's in-step primitives, over every rank:
 ``allreduce`` / ``pmean`` / ``allgather`` / ``alltoall`` / ``broadcast`` /
 ``reduce_scatter`` / ``adasum``; the reference's mesh axis is the world and
-``axis_index`` this process's rank.
+``axis_index`` this process's rank. :func:`quantized_all_to_all` (the MoE
+token exchange) takes a process group where the reference takes an axis.
 
 The quantized wire (``HOROVOD_GSPMD_WIRE`` or ``compression=``): the ring
 reduce-scatter and all-gather whose every hop ships rows packed by #3
@@ -598,6 +599,111 @@ def _wire_roundtrip(flat: torch.Tensor, wire: str, block: int) -> torch.Tensor:
     q, scales = comp.quantize_blocks(padded, block,
                                      bits=4 if wire == "int4" else 8)
     return comp.dequantize_blocks(q, scales, torch.float32, block)[:num]
+
+
+# --------------------------------------------------- quantized all_to_all
+def _a2a_roundtrip(flat: torch.Tensor, wire: str, block: int) -> torch.Tensor:
+    """The error-feedback numerator of one quantized all_to_all: what the
+    packed wire delivers for this rank's ``[m, per]`` payload, each peer's
+    segment padded to whole blocks on its own (as the pack does, so no
+    block mixes two peers), through ``ops/compression`` (#1 and #2 on the
+    card for int8; int4 quantizes in plain torch, then #2)."""
+    m, per = flat.shape
+    pad = (-per) % block
+    padded = F.pad(flat, (0, pad)) if pad else flat
+    q, scales = comp.quantize_blocks(padded.reshape(-1), block,
+                                     bits=4 if wire == "int4" else 8)
+    out = comp.dequantize_blocks(q, scales, torch.float32, block)
+    return out.reshape(m, per + pad)[:, :per]
+
+
+def _a2a_packed(packed: torch.Tensor, group, m: int) -> torch.Tensor:
+    """The tiled all_to_all of packed rows (row group j to peer j, what
+    arrives concatenated by source); the rows sent to the other ``m - 1``
+    peers count as hops (:func:`hop_bytes`)."""
+    sent = packed.numel() * packed.element_size() * (m - 1) // m
+    _hops["sent"] += m - 1
+    _hops["bytes"] += sent
+    return _collective("all_to_all", packed, _world()[2], m, group=group)
+
+
+def _a2a_wired(x: torch.Tensor, group, wire: str, block: int) -> torch.Tensor:
+    """One quantized all_to_all, forward value only: each destination
+    peer's payload padded to whole blocks, all ``m * rows`` rows packed by
+    one #3 (int8) or #4 (int4) launch, the packed int8 rows exchanged,
+    unpacked and decoded as ``q * scale`` (one f32 product a value, as the
+    reference's ``q.astype(f32) * scales``)."""
+    m = len(group_ranks(group))
+    per = x.numel() // m
+    flat = x.reshape(m, per).float()
+    pad = (-per) % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    pack, unpack = _pack_fns(wire)
+    wired = _a2a_packed(pack(flat.reshape(-1, block).contiguous()), group, m)
+    q, scales = unpack(wired)
+    vals = (q.float() * scales).reshape(m, per + pad)[:, :per]
+    return vals.reshape(x.shape)
+
+
+class _StAllToAll(torch.autograd.Function):
+    """The quantized exchange with a straight-through gradient: the
+    quantizer has no gradient, so the cotangent rides the exact all_to_all,
+    which (tiled on dim 0) is its own adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, group, wire, block):
+        ctx.group = group
+        return _a2a_wired(x, group, wire, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .parallel._comm import _exchange
+
+        return _exchange("all_to_all", g.contiguous(), ctx.group), \
+            None, None, None
+
+
+def quantized_all_to_all(x: torch.Tensor, group=None, wire: str = "int8",
+                         block: Optional[int] = None, ef=None):
+    """all_to_all over ``group`` (a process group; None: every rank) whose
+    payload rides the packed wire: the MoE token exchange.
+
+    ``x`` is the local ``[L, ...]`` operand, dim 0 split into ``m`` row
+    groups, group j to the axis's rank j; what arrives is concatenated by
+    source (the reference's ``all_to_all(tiled=True)`` on dim 0). Each
+    peer's payload pads to whole blocks on its own and packs into
+    ``[payload | 4 f32-scale bytes]`` rows; only those bytes cross the
+    wire. An axis of one rank, a non-float payload, a per-peer payload
+    under one block, or an odd block under int4 takes the exact
+    all_to_all. The gradient is straight-through (:class:`_StAllToAll`).
+
+    ``ef`` (f32, ``x``'s shape) turns on error feedback: it is added to
+    ``x`` before the exchange, and the return is ``(y, new_ef)`` with
+    ``new_ef = corrected - roundtrip(corrected)``, outside the graph."""
+    from .parallel._comm import all_to_all  # parallel imports this module
+
+    m = len(group_ranks(group))
+    if x.shape[0] % m:
+        raise ValueError(f"all_to_all dim 0 ({x.shape[0]}) not divisible by "
+                         f"axis size {m}")
+    block = _wire_block(block)
+    per = x.numel() // m
+    if m == 1 or not _wire_eligible(per, x.dtype, wire, block):
+        y = all_to_all(x, group)
+        if ef is None:
+            return y
+        return y, torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    corrected = x.float()
+    if ef is not None:
+        corrected = corrected + ef.detach().float()
+    y = _StAllToAll.apply(corrected, group, wire, block).to(x.dtype)
+    if ef is None:
+        return y
+    with torch.no_grad():
+        flat = corrected.detach().reshape(m, per)
+        new_ef = (flat - _a2a_roundtrip(flat, wire, block)).reshape(x.shape)
+    return y, new_ef
 
 
 # ------------------------------------------------------- byte accounting

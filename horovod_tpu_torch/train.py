@@ -13,6 +13,10 @@ autocast with f32 parameters, in channels_last.
 ``benchmarks/lm_bench.py``: tokens/s and MFU of AdamW training on seeded
 random tokens.
 
+``synthetic_moe_train`` is the Switch-MoE step of ``lm_bench --moe``: one
+weight-tied MoE block over a (dp, ep) grid, exact or capacity dispatch,
+the latter on the int8 / int4 wire.
+
 ``plane="compiled"`` (ResNet) / ``compiled=True`` (LM) trains through the
 compiled data-parallel plane instead, ``spmd.make_train_step``: one CUDA
 graph a step at world 1 on the card (``graph``), the quantized ring with its
@@ -22,6 +26,7 @@ error-feedback residual on a wire, no engine and no hooks.
 from __future__ import annotations
 
 import hashlib
+import math
 import time
 from typing import Optional
 
@@ -38,6 +43,7 @@ from .ops import cuda_kernels as ck
 from .optim.broadcast import broadcast_parameters
 from .optim.distributed import DistributedOptimizer
 from .optim.fused import FusedAdamW
+from .parallel import expert as epar
 
 # lm_bench's presets (benchmarks/lm_bench.py:50-58): widths and the
 # per-replica batch and sequence
@@ -395,5 +401,152 @@ def synthetic_lm_train(preset: str = "medium", batch: Optional[int] = None,
                                if p.requires_grad),
         "launches_per_replay": (tr.train_step.launches_per_replay
                                 if tr.train_step is not None else None),
+        **tr.config,
+    }
+
+
+# lm_bench --moe's defaults on the TPU (benchmarks/lm_bench.py:119-127)
+MOE_WIDTHS = dict(d_model=1024, hidden_mult=4, vocab=32768, experts=8,
+                  tokens=65536, capacity_factor=1.25)
+# lm_bench's dispatch configurations: (dispatch, wire)
+MOE_DISPATCH = {"exact": ("exact", ""), "capacity": ("capacity", "off"),
+                "capacity-int8": ("capacity", "int8"),
+                "capacity-int4": ("capacity", "int4")}
+
+
+def moe_lm_params(seed: int, d_model: int, experts: int, hidden_mult: int,
+                  vocab: int) -> dict:
+    """The MoE block's full parameters: :func:`epar.init_moe_params` from
+    ``seed`` and the tied embedding ``emb [vocab, d]``, normal(0.02) from
+    ``seed + 1``, f32 on the CPU."""
+    params = epar.init_moe_params(seed, d_model, experts, hidden_mult)
+    gen = torch.Generator().manual_seed(seed + 1)
+    params["emb"] = 0.02 * torch.randn(vocab, d_model, generator=gen)
+    return params
+
+
+def moe_lm_loss(params, batch, moe):
+    """lm_bench's MoE loss: embed, the routed expert MLP as a residual,
+    the tied head; ``CE + 0.01 * aux``."""
+    tok, tgt = batch
+    h = params["emb"][tok]
+    y, aux = moe(params, h)
+    logits = (h + y) @ params["emb"].t()
+    return F.cross_entropy(logits, tgt) + 0.01 * aux
+
+
+class MoETrainer:
+    """The model, data and optimizer of :func:`synthetic_moe_train` on this
+    rank (the framework is initialized on ``device`` if it is not yet);
+    :meth:`step` takes one step. ``params`` (a full tree as
+    :func:`moe_lm_params` returns, e.g. carried from the reference) replaces
+    the seeded weights."""
+
+    def __init__(self, dispatch: str = "capacity-int8",
+                 d_model: int = MOE_WIDTHS["d_model"],
+                 hidden_mult: int = MOE_WIDTHS["hidden_mult"],
+                 vocab: int = MOE_WIDTHS["vocab"],
+                 experts: int = MOE_WIDTHS["experts"],
+                 tokens: int = MOE_WIDTHS["tokens"],
+                 capacity_factor: float = MOE_WIDTHS["capacity_factor"],
+                 ep: Optional[int] = None, device: Optional[str] = None,
+                 seed: int = 0, params: Optional[dict] = None):
+        if dispatch not in MOE_DISPATCH:
+            raise ValueError(f"dispatch {dispatch!r}: expected one of "
+                             f"{sorted(MOE_DISPATCH)}")
+        basics.init(device=device)
+        self.device = dev = basics.device()
+        self.on_cuda = dev.type == "cuda"
+        world = basics.size()
+        ep = ep or math.gcd(world, experts)
+        if world % ep or experts % ep:
+            raise ValueError(f"ep={ep} must divide both the world size "
+                             f"({world}) and the experts ({experts})")
+        self.mesh = mesh = epar.make_dp_ep_mesh(world // ep, ep)
+        self.n_tokens = n = max(world, tokens // world * world)
+        if params is None:
+            params = moe_lm_params(seed, d_model, experts, hidden_mult, vocab)
+        self.params = epar.tree_map_with_path(
+            lambda _p, t: t.to(dev).requires_grad_(),
+            epar.shard_params_ep(params, mesh))
+        toks = np.random.RandomState(0).randint(0, vocab, (n + 1,))
+        self.batch = (torch.from_numpy(toks[:-1]).to(dev),
+                      torch.from_numpy(toks[1:]).to(dev))
+        kind, wire = MOE_DISPATCH[dispatch]
+        self.capacity = kind == "capacity"
+
+        def make_opt(leaves):
+            return torch.optim.Adam(leaves, lr=1e-2)  # lm_bench's
+
+        self.opt_state = (epar.moe_opt_state(make_opt, self.params, mesh, n,
+                                             capacity_factor)
+                          if self.capacity
+                          else make_opt(epar.tree_leaves(self.params)))
+        self.train_step = epar.make_ep_train_step(
+            moe_lm_loss, mesh, dispatch=kind,
+            capacity_factor=capacity_factor, wire=wire)
+        self.stats = None
+        self.config = dict(dispatch=dispatch, d_model=d_model,
+                           hidden_mult=hidden_mult, vocab=vocab,
+                           experts=experts, tokens=n,
+                           capacity_factor=capacity_factor, world=world,
+                           dp=mesh.dp, ep=ep,
+                           wire=(epar.moe_wire(wire) if self.capacity
+                                 else ""))
+
+    def step(self):
+        """One training step; returns the loss (a device tensor)."""
+        out = self.train_step(self.params, self.opt_state, self.batch)
+        if self.capacity:
+            out, self.stats = out
+        return out
+
+    def sync(self) -> None:
+        if self.on_cuda:
+            torch.cuda.synchronize(self.device)
+
+
+def synthetic_moe_train(dispatch: str = "capacity-int8", steps: int = 3,
+                        warmup: int = 2, device: Optional[str] = None,
+                        **kwargs) -> dict:
+    """Train ``lm_bench --moe``'s model for ``warmup + steps`` steps: one
+    weight-tied MoE block (embed -> top-1 routed expert MLP -> tied head),
+    loss ``CE + 0.01 * aux``, Adam at 1e-2, f32, over a (dp, ep) grid of
+    every rank (``ep = gcd(world, experts)`` unless given), with
+    ``dispatch`` ``exact``, ``capacity`` (the exact exchange),
+    ``capacity-int8`` or ``capacity-int4``; tokens from ``RandomState(0)``,
+    weights from ``seed``. Widths default to lm_bench's on the TPU
+    (``MOE_WIDTHS``); the other keywords are :class:`MoETrainer`'s.
+
+    Returns ``losses``, ``tokens_per_sec`` (the global tokens of the timed
+    steps over their wall time), ``step_ms``, ``drop_rate`` and
+    ``imbalance`` (the last capacity step's; None under exact),
+    ``peak_memory_bytes`` (None on the CPU), ``launches`` (per wrapper,
+    this call) and the configuration."""
+    tr = MoETrainer(dispatch, device=device, **kwargs)
+    before = ck.launch_counts()
+    if tr.on_cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    losses = [tr.step() for _ in range(warmup)]
+    tr.sync()
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(steps)]
+    tr.sync()
+    elapsed = time.perf_counter() - t0
+    after = ck.launch_counts()
+    stats = tr.stats
+    load = stats["load"].float().cpu() if stats is not None else None
+    return {
+        "losses": [float(v) for v in losses],
+        "tokens_per_sec": tr.n_tokens * steps / elapsed if steps else None,
+        "step_ms": 1e3 * elapsed / steps if steps else None,
+        "drop_rate": (float(stats["dropped"]) / tr.n_tokens
+                      if stats is not None else None),
+        "imbalance": (float(load.max() / load.mean())
+                      if load is not None else None),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(tr.device)
+                              if tr.on_cuda else None),
+        "launches": {k: after[k] - before[k] for k in after},
+        "device": str(tr.device),
         **tr.config,
     }
