@@ -134,9 +134,9 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 6b. runs ring and Ulysses attention on world size 4 (gloo, one card) over a
    ``[1, 16384, 16, 64]`` bf16 sequence, forward and backward, against
    K5/K7 on the whole sequence, with the launches per rank;
-6c. trains GPT-2-medium widths at 4 layers on a dp=1 x sp=4 grid over a
-   16384-token sequence for 2 steps through ``make_sp_train_step`` (16 K6
-   and 16 K7 launches a step a rank) and checks bit-identical parameters
+6c. trains GPT-2-medium widths at 2 layers on a dp=1 x sp=4 grid over a
+   16384-token sequence for 2 steps through ``make_sp_train_step`` (8 K6
+   and 8 K7 launches a step a rank) and checks bit-identical parameters
    and agreement with one world-1 step on the whole sequence, whose
    attention is PyTorch's own; times a ring hop, the gradient allreduce
    and the step's gradient mean per tensor and in 25 MiB buckets;
@@ -159,8 +159,8 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
    p's chunk against the f64 dense sum, the unfused reference (two faulted
    rings, one missing a partial and one adding in float8, must fail the
    same bound), 4 K10 launches a call a rank, and the time of a call;
-7c. trains GPT-2-medium widths at 4 layers on a dp=1 x tp=4 grid, global
-   batch 8 x 1024, for 2 steps through ``make_tp_train_step`` (4 K5 and 4
+7c. trains GPT-2-medium widths at 2 layers on a dp=1 x tp=4 grid, global
+   batch 8 x 1024, for 2 steps through ``make_tp_train_step`` (2 K5 and 2
    K7 launches a step a rank, on a rank's 4 heads) and checks replicated
    parameters bit-identical on all ranks and agreement with one world-1
    step, whose attention is PyTorch's own; peak memory a rank;
@@ -193,6 +193,34 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 Phases 8a-8c run first, while the script's own process holds almost
 nothing on the card.
 
+9a. trains VGG-16 (138,357,544 parameters; its first dense kernel holds
+   102.76M) at world size 1, batch 128, 224x224, bf16 autocast,
+   channels_last, through ``DistributedOptimizer`` with int8 and error
+   feedback (2 warm-up and 5 timed steps, one grouped #1 and one #2 a step
+   over its 32 leaves), then without compression: images/s, ms a step,
+   peak memory; one more step's error-feedback residual of every leaf held
+   bit for bit to the plain roundtrip, and #1 / #2 to their twins at the
+   102.76M-element leaf;
+9b. does the same for Inception V3 (batch 128, 299x299, 284 leaves: two
+   #1 launches a step, one #2), and takes one graphed step of the
+   compiled plane against the eager first step's loss;
+9c. holds VGG (a short cfg at 64x64), Inception V3 (139x139, in f64) and
+   MNISTConvNet (28x28) trained 3 steps with int8 error feedback on the
+   card against the same training on the CPU, TF32 off;
+9d. trains GPT-2-medium (5b's widths, fused LayerNorm and AdamW) under
+   ``remat`` none, full and dots: ms a step, tokens/s, peak memory, the
+   launches a step (K5 24 or 48, K7 24, K8 49 or 97, K9 1), dots' first
+   loss and gradients bit-equal to none's, peak memory full < dots < none;
+9e. writes an image folder (4 classes, 512 uint8 ``.npy`` images at
+   224x224, and 8 PNGs where PIL is installed) and trains ResNet-50 on it
+   at world size 2 (two gloo processes on the card) through
+   ``ShardedImageFolder`` (batch 32 a rank, 2 epochs), ``DistributedOptimizer``
+   on the packed int8 wire with error feedback, and the broadcast, warmup
+   and metric-average callbacks: disjoint shards covering each epoch,
+   reshuffled by ``set_epoch``, parameters bit-identical after each epoch,
+   the averaged metric equal on both ranks, the reference's warmup lr at
+   every batch.
+
 ``--fault skip-hop`` or ``--fault shift-k-off`` breaks ring attention on
 purpose and runs phases 6c and 6d only; ``--fault drop-tp-reduce`` makes
 block 0's row-parallel mlp_out skip its sum over tp and runs phases 7c and
@@ -205,7 +233,9 @@ peers' rows swapped) run phase 8b only, ``--fault pipe-skip-stage``
 (stage 0's output skips stage 1) phase 8c only. Each shows that the
 phases' agreement
 checks fail a wrong program: it exits 0 when every phase (or case) fails
-them.
+them. ``--fault dots-save-none`` (``remat="dots"`` keeps no product) runs
+phase 9d only and ``--fault shard-overlap`` (both ranks read rank 0's
+shard) phase 9e only; there the phase's failed check exits non-zero.
 
 Exits non-zero, with no result line, when a phase fails or no CUDA device
 is present. The last line of standard output is
@@ -1598,7 +1628,7 @@ def phase_compiled_resnet(batch: int, engine: dict) -> dict:
     phases 2 / 2c's ``synthetic_train`` on the engine's plane in this call;
     the card's busy share over two profiled graphed steps."""
     from horovod_tpu_torch.ops import cuda_kernels as ck
-    from horovod_tpu_torch.train import ResNetTrainer
+    from horovod_tpu_torch.train import ImageTrainer
 
     steps, warmup = 5, 2
     want = {"none": {}, "int8": {"int8_quantize_2d": 1,
@@ -1608,7 +1638,7 @@ def phase_compiled_resnet(batch: int, engine: dict) -> dict:
     for wire in ("none", "int8"):
         for graph in (True, False):
             ck.reset_launch_counts()
-            tr = ResNetTrainer("ResNet50", batch=batch, image=224,
+            tr = ImageTrainer("ResNet50", batch=batch, image=224,
                                compression=wire, device="cuda:0",
                                plane="compiled", graph=graph)
             losses, secs = timed_steps(tr, warmup, steps)
@@ -1969,7 +1999,7 @@ def zero1_card_worker(batch: int, steps: int, faults=()) -> dict:
     |difference| over the largest |update| the replicated run made."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import cuda_kernels as ck
-    from horovod_tpu_torch.train import ResNetTrainer, params_sha256
+    from horovod_tpu_torch.train import ImageTrainer, params_sha256
 
     out = {"backend": hvd.backend()}
     runs = [("replicated", False, None)] + (
@@ -1977,7 +2007,7 @@ def zero1_card_worker(batch: int, steps: int, faults=()) -> dict:
     ref = update = None
     for label, z, fault in runs:
         ck.reset_launch_counts()
-        tr = ResNetTrainer("ResNet50", batch=batch, image=224,
+        tr = ImageTrainer("ResNet50", batch=batch, image=224,
                            compression="int8", plane="compiled", zero1=z)
         start = flat_params(tr.net)
         undo = plant_zero1_fault(tr, fault) if fault else None
@@ -2355,7 +2385,7 @@ def program_worker(cluster: str, batch: int, image: int, warmup: int,
     from horovod_tpu_torch.ops import cuda_kernels as ck
     from horovod_tpu_torch.optim.distributed import gradient_units
     from horovod_tpu_torch.runtime.executor import Executor, group_ranks
-    from horovod_tpu_torch.train import ResNetTrainer, params_sha256
+    from horovod_tpu_torch.train import ImageTrainer, params_sha256
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -2386,7 +2416,7 @@ def program_worker(cluster: str, batch: int, image: int, warmup: int,
             continue
         hvd.Compression.adaptive.reset()
         adaptive.reset()
-        tr = ResNetTrainer("ResNet50", batch=batch, image=image,
+        tr = ImageTrainer("ResNet50", batch=batch, image=image,
                            compression=compression, error_feedback=ef)
         units, _ = gradient_units(tr.net.named_parameters(),
                                   hvd.Compression.none)
@@ -4440,6 +4470,598 @@ def moe_fault_check(fault: str) -> int:
     return 0 if any(caught.values()) else 1
 
 
+# ----------------------------------------------- phases 9a-9e: the model zoo
+# the image models of phases 9a / 9b at full width (bench.py's TPU
+# defaults): batch, image side, and the parameter count or its range
+ZOO = {"9a": ("VGG16", 128, 224, (138_357_544, 138_357_544)),
+       "9b": ("InceptionV3", 128, 299, (23.0e6, 24.5e6))}
+# phase 9c: (model, image side, batch, dtype); VGG with a short cfg at
+# 64x64 (five pools leave 2 x 2, so the flatten's order matters). Inception
+# runs in f64, its loss taken from the head's f64 output: in f32 its ~94
+# BatchNorms over few values a channel make 3 steps chaotic (on the CPU the
+# thread count alone moves an f32 run far past the bounds, and an f64 run
+# nowhere near them), so f32 could not tell a wrong kernel from the order
+# of a sum
+ZOO_SMALL = (("VGG", 64, 8, torch.float32),
+             ("InceptionV3", 139, 8, torch.float64),
+             ("MNISTConvNet", 28, 8, torch.float32))
+ZOO_SHORT_CFG = [16, "M", 32, "M", 64, "M", 64, "M", 64, "M"]
+# phase 9c's bounds, card against CPU after 3 steps of f32 SGD with int8
+# error feedback (TF32 off), as phase 2b's: the loss relative, the
+# parameters absolute (a flipped int8 rounding moves one block's residual)
+ZOO_LOSS_REL, ZOO_PARAM_ABS = 1e-4, 2e-4
+# phase 9e: the real-data folder (4 classes of 224x224 uint8 .npy images,
+# plus PNGs through PIL where it is installed), ResNet-50 at batch 32 a
+# rank for 2 epochs with a 2-epoch warmup from BASE_LR
+REALDATA = dict(classes=4, npy=512, png=8, side=224, batch=32, epochs=2,
+                seed=3, base_lr=0.0125)
+ZOO_FAULTS = ("dots-save-none", "shard-overlap")
+# the exit code of a zoo fault whose phase failed a check (the fault was
+# caught): not 1, which any uncaught error gives
+ZOO_FAULT_CAUGHT = 4
+
+
+class ChecksFailed(AssertionError):
+    """A phase failed some of its named checks (``checks``: name -> bool)."""
+
+    def __init__(self, phase: str, checks: dict):
+        self.checks = checks
+        super().__init__(f"{phase} failed: "
+                         f"{[k for k, v in checks.items() if not v]}")
+
+
+def ef_residual_check(tr) -> tuple:
+    """One more int8 + error-feedback step of an ``ImageTrainer`` on the
+    engine's plane at world 1: the new residual of every leaf against the
+    plain roundtrip of ``grad + residual`` (the twins of the grouped #1 and
+    of #2), bit for bit, then #1 / #2 against their twins at the largest
+    leaf (VGG-16's first dense kernel, 102.76M elements). Returns the main
+    path's launch counts before the twin comparisons."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import compression as comp
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    opt = tr.dist_opt
+    named = [(n, p) for n, p in tr.net.named_parameters() if p.requires_grad]
+    opt.zero_grad()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        logits = tr.net(tr.x)
+    F.cross_entropy(logits.float(), tr.y).backward()
+    with torch.no_grad():
+        corrected = [p.grad + opt._ef_residual[n] if n in opt._ef_residual
+                     else p.grad.clone() for n, p in named]
+    opt.step()
+    tr.sync()
+    counts = ck.launch_counts()
+    block = comp.block_size()
+    out = {}
+    with torch.no_grad():
+        q, sc = ck.int8_quantize_2d_many_plain(corrected, block)
+        y = ck.int8_dequantize_2d_plain(q, sc).reshape(-1)
+        equal, start = True, 0
+        for (n, _), c in zip(named, corrected):
+            k = c.numel()
+            want = c - y[start:start + k].view(c.shape)
+            equal = equal and bits_equal(opt._ef_residual[n], want)
+            start += -(-k // block) * block
+        del q, sc, y
+        i = max(range(len(named)), key=lambda j: corrected[j].numel())
+        c = corrected[i].reshape(-1)
+        rows = torch.nn.functional.pad(
+            c, (0, (-c.numel()) % block)).reshape(-1, block)
+        q1, s1 = ck.int8_quantize_2d(rows)
+        q0, s0 = ck.int8_quantize_2d_plain(rows)
+        out = {"residual_equal": equal, "leaf": named[i][0],
+               "leaf_elements": c.numel(),
+               "quantize_equal": bits_equal(q1, q0) and bits_equal(s1, s0),
+               "dequantize_equal": bits_equal(ck.int8_dequantize_2d(q0, s0),
+                                              ck.int8_dequantize_2d_plain(
+                                                  q0, s0))}
+    out["ok"] = (out["residual_equal"] and out["quantize_equal"]
+                 and out["dequantize_equal"])
+    return out, counts
+
+
+def phase_zoo_world1(label: str) -> dict:
+    """Phases 9a (VGG-16) / 9b (Inception V3): world 1 at full width (bf16
+    autocast, channels_last, SGD 0.01 momentum 0.9) on the engine's plane,
+    int8 with error feedback (2 warm-up, 5 timed steps, then one more step
+    whose residual is held to the plain roundtrip bit for bit) and then
+    without compression; images/s, ms a step, peak memory, #1 / #2
+    launches a step; 9b also one graphed step of the compiled plane against
+    the eager first step's loss."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import ImageTrainer
+
+    model, batch, image, (lo, hi) = ZOO[label]
+    steps, warmup = 5, 2
+    t0 = time.perf_counter()
+    out, ok = {"model": model, "batch": batch, "image": image}, True
+    table = ck._kernel("hvd_int8_table_leaves")[1]()
+    for wire in ("int8", "none"):
+        ck.reset_launch_counts()
+        tr = ImageTrainer(model, batch=batch, image=image, compression=wire,
+                          error_feedback=wire == "int8", device="cuda:0")
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(tr, warmup, steps)
+        peak = torch.cuda.max_memory_allocated()
+        leaves = sum(1 for p in tr.net.parameters() if p.requires_grad)
+        n_params = sum(p.numel() for p in tr.net.parameters())
+        ran = warmup + steps
+        r = {"losses": losses, "images_per_sec": batch * steps / secs,
+             "step_ms": 1e3 * secs / steps, "peak_memory_bytes": peak,
+             "leaves": leaves, "params": n_params}
+        good = (all(math.isfinite(v) for v in losses)
+                and lo <= n_params <= hi)
+        if wire == "int8":
+            residual, counts = ef_residual_check(tr)
+            ran += 1
+            r["residual"] = residual
+            want = {"int8_quantize_2d": -(-leaves // table),
+                    "int8_dequantize_2d": 1}
+            good = good and residual["ok"] and all(
+                counts[k] == ran * n for k, n in want.items())
+        else:
+            counts = ck.launch_counts()
+            want = {k: 0 for k in WIRE}
+            good = good and all(counts[k] == 0 for k in WIRE)
+        r.update(counts=counts, per_step={k: counts[k] / ran for k in want},
+                 want_per_step=want)
+        out[wire] = r
+        ok = ok and good
+        log(f"phase {label}: {model} world 1 batch {batch} {image}x{image} "
+            f"{wire}{'+EF' if wire == 'int8' else ''}: "
+            f"{r['images_per_sec']:.1f} images/s, {r['step_ms']:.2f} ms a "
+            f"step, peak memory {peak / 2**30:.2f} GiB, {n_params} "
+            f"parameters in {leaves} leaves, launches a step "
+            f"{r['per_step']} (want {want}), losses "
+            f"{[round(v, 4) for v in losses]}"
+            + (f", residual {residual}" if wire == "int8" else "")
+            + f" on {CARD}: ok={good}")
+        del tr
+        release()
+    if label == "9b":
+        ck.reset_launch_counts()
+        tr = ImageTrainer(model, batch=batch, image=image,
+                          compression="int8", device="cuda:0",
+                          plane="compiled", graph=True)
+        loss = float(tr.step())
+        tr.sync()
+        eager = out["int8"]["losses"][0]
+        rel = abs(loss - eager) / abs(eager)
+        ts = tr.train_step
+        g = {"loss": loss, "eager_loss": eager, "rel": rel,
+             "graphed": ts.graphed, "counts": ck.launch_counts(),
+             "launches_per_replay": ts.launches_per_replay}
+        good = (ts.graphed and rel <= RESNET_GRAPH_LOSS
+                and ts.launches_per_replay == {"int8_quantize_2d": 1,
+                                               "int8_dequantize_2d": 1})
+        ok = ok and good
+        out["graphed"] = g
+        log(f"phase 9b: {model} compiled plane, one graphed step: loss "
+            f"{loss:.6f} against the eager first step's {eager:.6f}, rel "
+            f"{rel:.3e} (<= {RESNET_GRAPH_LOSS}), per replay "
+            f"{ts.launches_per_replay}: ok={good}")
+        del tr, ts
+        release()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase {label} took {out['seconds']:.1f} s")
+    if not ok:
+        raise AssertionError(f"phase {label} ({model}) failed its checks")
+    return out
+
+
+def zoo_small_net(name: str, image: int):
+    from horovod_tpu_torch.models import InceptionV3, VGG, mnist
+
+    if name == "VGG":
+        return VGG(ZOO_SHORT_CFG, num_classes=10, dropout=0.0,
+                   image_size=image, seed=2)
+    if name == "InceptionV3":
+        return InceptionV3(num_classes=10, seed=2)
+    return mnist.MNISTConvNet(num_classes=10, dropout=(0.0, 0.0), seed=2,
+                              image_size=image)
+
+
+def zoo_small_run(name: str, image: int, batch: int, dev: str,
+                  dtype=torch.float32, lr: float = 0.01) -> tuple:
+    """3 steps of SGD (``lr``, momentum 0.9) with int8 error feedback on
+    ``dev`` in ``dtype``: (losses, parameters on the CPU)."""
+    from horovod_tpu_torch.ops.compression import Compression
+    from horovod_tpu_torch.optim.distributed import DistributedOptimizer
+    from horovod_tpu_torch.train import synthetic_batch
+
+    channels = 1 if name.startswith("MNIST") else 3
+    images, labels = synthetic_batch(batch, image, 10, 0, 1, channels)
+    net = zoo_small_net(name, image).to(dev, dtype)
+    opt = DistributedOptimizer(
+        torch.optim.SGD(net.parameters(), lr=lr, momentum=0.9),
+        named_parameters=net.named_parameters(),
+        compression=Compression.int8, error_feedback=True)
+    x = torch.from_numpy(images).to(dev, dtype)
+    y = torch.from_numpy(labels).to(dev)
+    head = {}
+    if dtype == torch.float64:
+        # the model casts its logits to f32 (as the Flax model does), which
+        # would put f32 rounding back into an f64 run: take the loss from
+        # the head's own output
+        last = [m for m in net.modules() if isinstance(m, torch.nn.Linear)]
+        last[-1].register_forward_hook(
+            lambda m, i, o: head.__setitem__("logits", o))
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        out = net(x)
+        loss = torch.nn.functional.cross_entropy(head.get("logits", out), y)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    return losses, {k: v.detach().cpu().double() for k, v in
+                    net.named_parameters()}
+
+
+def phase_zoo_small_agreement() -> dict:
+    """Phase 9c: VGG (a short cfg at 64x64) and MNISTConvNet (28x28) in
+    f32, Inception V3 (139x139) in f64 (``ZOO_SMALL``), batch 8, 3 steps
+    with int8 error feedback (the wire kernels take the f64 leaves as f32)
+    on the card (kernels) and on the CPU (twins), TF32 off: the losses and
+    parameters within ZOO_LOSS_REL / ZOO_PARAM_ABS."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    hvd.init(device="cuda:0")
+    t0 = time.perf_counter()
+    out, ok = {}, True
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = {k: 0 for k in ck.launch_counts()}
+    try:
+        for name, image, batch, dtype in ZOO_SMALL:
+            lc, pc = zoo_small_run(name, image, batch, "cpu", dtype)
+            ck.reset_launch_counts()
+            lg, pg = zoo_small_run(name, image, batch, "cuda", dtype)
+            for k, v in ck.launch_counts().items():
+                counts[k] += v
+            loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+            param_abs = max(float((pc[k] - pg[k]).abs().max()) for k in pc)
+            good = loss_rel < ZOO_LOSS_REL and param_abs < ZOO_PARAM_ABS
+            ok = ok and good
+            out[name] = {"loss_rel": loss_rel, "param_abs": param_abs,
+                         "image": image, "dtype": str(dtype),
+                         "losses_cpu": lc, "losses_card": lg}
+            log(f"phase 9c: small {name} ({image}x{image}) card vs CPU, 3 "
+                f"steps int8+EF in {dtype}: loss rel diff {loss_rel:.3e} (< "
+                f"{ZOO_LOSS_REL}), param abs diff {param_abs:.3e} (< "
+                f"{ZOO_PARAM_ABS}): ok={good}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9c took {out['seconds']:.1f} s")
+    if not ok:
+        raise AssertionError("card and CPU disagree on a small zoo model")
+    return out
+
+
+def lm_remat_per_step(remat: str, layers: int) -> dict:
+    """Kernel launches a step of the fused LM (K8, K9) under ``remat``:
+    a recomputing mode runs each block's K5 and its two K8 again."""
+    want = lm_per_step(True, layers)
+    if remat != "none":
+        want["flash_attention_fwd"] += layers
+        want["layer_norm_fwd"] += 2 * layers
+    return want
+
+
+def phase_lm_remat(fault=None) -> dict:
+    """Phase 9d: GPT-2-medium (5b's widths, fused LN and AdamW) at world 1
+    under ``remat`` none, full and dots, 2 + 5 steps each: ms a step,
+    tokens/s, peak memory (of the 6 steps after the first), launches a
+    step; the first step's loss and gradients under dots bit-equal to
+    none's (the same kernels on the same inputs: K7 has no float atomics);
+    peak memory full < dots < none; then each mode as one CUDA graph (the
+    compiled plane), with its launches a replay. ``fault="dots-save-none"``
+    makes the dots policy save nothing (it then recomputes what full does)
+    and skips the graphed runs. Raises :class:`ChecksFailed` naming the
+    failed checks."""
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import LMTrainer
+
+    if fault == "dots-save-none":
+        transformer.DOTS_SAVED = ()
+    steps, warmup = 5, 2
+    t0 = time.perf_counter()
+    out, checks, first = {}, {}, None
+    for remat in ("none", "full", "dots"):
+        ck.reset_launch_counts()
+        tr = LMTrainer("medium", fused_ln=True, fused_opt=True, remat=remat,
+                       device="cuda:0")
+        loss0 = tr.step()
+        tr.sync()
+        # the first step's loss and gradients, kept on the host so that no
+        # mode's peak memory carries them
+        grads = [p.grad.cpu() for p in tr.net.parameters()]
+        if remat == "none":
+            first = (loss0.cpu(), grads)
+        elif remat == "dots":
+            same_loss = bits_equal(loss0.cpu(), first[0])
+            same = [bits_equal(g, g0) for g, g0 in zip(grads, first[1])]
+            worst = max(float((g - g0).abs().max()
+                              / g0.abs().max().clamp_min(1e-30))
+                        for g, g0 in zip(grads, first[1]))
+            out["dots_vs_none"] = {"loss_bit_equal": same_loss,
+                                   "grads_bit_equal": sum(same),
+                                   "grads": len(same), "worst_rel": worst}
+            checks["dots' first loss and gradients bit-equal to none's"] = (
+                same_loss and all(same))
+            first = None
+        del grads
+        # peak memory of the steps after the first (which made the
+        # optimizer's state): the same weights and state in every mode
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = timed_steps(tr, warmup - 1, steps)
+        peak = torch.cuda.max_memory_allocated()
+        counts = ck.launch_counts()
+        ran = warmup + steps
+        want = lm_remat_per_step(remat, MEDIUM["layers"])
+        r = {"losses": [float(loss0)] + losses, "step_ms": 1e3 * secs / steps,
+             "tokens_per_sec": tr.batch * tr.seq * steps / secs,
+             "peak_memory_bytes": peak, "counts": counts,
+             "per_step": {k: counts[k] / ran for k in want}}
+        good = (all(math.isfinite(v) for v in r["losses"])
+                and all(counts[k] == ran * n for k, n in want.items()))
+        checks[f"remat={remat}: finite losses, launches a step"] = good
+        out[remat] = r
+        log(f"phase 9d: GPT-2-medium world 1 fused, remat={remat}: "
+            f"{r['step_ms']:.2f} ms a step, {r['tokens_per_sec']:.1f} "
+            f"tokens/s, peak memory {peak / 2**30:.2f} GiB, launches a step "
+            f"{r['per_step']} (want {want}), losses "
+            f"{[round(v, 4) for v in r['losses']]} on {CARD}: ok={good}")
+        del tr
+        release()
+    # the same three steps as one CUDA graph each (the compiled plane): the
+    # eager step is host-bound, and the selective checkpoint's dispatch
+    # mode adds host work that a replay does not repeat
+    for remat in ("none", "full", "dots"):
+        if fault:
+            break
+        want = lm_remat_per_step(remat, MEDIUM["layers"])
+        tr = LMTrainer("medium", fused_ln=True, fused_opt=True, remat=remat,
+                       device="cuda:0", compiled=True)
+        losses, secs = timed_steps(tr, warmup, steps)
+        per = tr.train_step.launches_per_replay
+        g = {"graphed": tr.train_step.graphed, "step_ms": 1e3 * secs / steps,
+             "tokens_per_sec": tr.batch * tr.seq * steps / secs,
+             "launches_per_replay": per, "losses": losses}
+        good = (g["graphed"] and all(math.isfinite(v) for v in losses)
+                and all(per.get(k, 0) == n for k, n in want.items()))
+        checks[f"remat={remat} graphed: one graph, finite losses, launches "
+               f"a replay"] = good
+        log(f"phase 9d: remat={remat} as one CUDA graph: "
+            f"{g['step_ms']:.2f} ms a step, {g['tokens_per_sec']:.1f} "
+            f"tokens/s, per replay {per}: ok={good}")
+        out[remat]["graph"] = g
+        del tr
+        release()
+    peaks = {m: out[m]["peak_memory_bytes"] for m in ("none", "full", "dots")}
+    # what dots keeps beyond full: the four products' bf16 outputs, 9 d
+    # values a token a layer; at least half of it must show
+    kept = 9 * MEDIUM["batch"] * MEDIUM["seq"] * MEDIUM["d"] * 2 * \
+        MEDIUM["layers"]
+    order = (peaks["full"] + kept // 2 <= peaks["dots"] < peaks["none"])
+    out["products_bytes"] = kept
+    checks["peak memory full + half the products <= dots < none"] = order
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 9d: dots against none, first step: "
+        f"{out.get('dots_vs_none')}; peak memory full "
+        f"{peaks['full'] / 2**30:.2f} + half the products "
+        f"{kept // 2 / 2**30:.2f} <= dots {peaks['dots'] / 2**30:.2f} < "
+        f"none {peaks['none'] / 2**30:.2f} GiB: {order}; checks {checks}; "
+        f"took {out['seconds']:.1f} s")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise ChecksFailed("phase 9d (remat none / full / dots)", checks)
+    return out
+
+
+def write_image_folder(root: str, cfg: dict) -> dict:
+    """Phase 9e's folder: ``cfg["classes"]`` classes of 224x224 uint8
+    ``.npy`` images from a seeded generator, plus PNGs where PIL is
+    installed."""
+    import numpy as np
+
+    rng = np.random.RandomState(cfg["seed"])
+    side, n_cls = cfg["side"], cfg["classes"]
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    pngs = cfg["png"] if Image is not None else 0
+    for i in range(cfg["npy"] + pngs):
+        cdir = os.path.join(root, f"class_{i % n_cls}")
+        os.makedirs(cdir, exist_ok=True)
+        arr = rng.randint(0, 256, (side, side, 3)).astype(np.uint8)
+        if i < cfg["npy"]:
+            np.save(os.path.join(cdir, f"img_{i:04d}.npy"), arr)
+        else:
+            Image.fromarray(arr).save(os.path.join(cdir, f"img_{i:04d}.png"))
+    return {"npy": cfg["npy"], "png": pngs}
+
+
+def realdata_worker(root: str, cfg: dict, overlap: bool = False) -> dict:
+    """One rank of phase 9e: ResNet-50 (seeded by rank, so the broadcast
+    matters) on this rank's ``ShardedImageFolder`` shard, SGD under
+    ``DistributedOptimizer`` on the packed int8 wire with error feedback,
+    the broadcast, warmup and metric-average callbacks, ``cfg["epochs"]``
+    epochs (``cfg``: ``REALDATA``). ``overlap``: every rank reads rank 0's
+    stride."""
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.callbacks import (BroadcastGlobalVariablesCallback,
+                                             CallbackList,
+                                             LearningRateWarmupCallback,
+                                             MetricAverageCallback)
+    from horovod_tpu_torch.data import ShardedImageFolder
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.train import params_sha256
+
+    os.environ["HOROVOD_PACKED_WIRE"] = "1"
+    ck.reset_launch_counts()
+    dev = hvd.device()
+    ds = ShardedImageFolder(root, batch_size=cfg["batch"],
+                            image_size=cfg["side"],
+                            rank=0 if overlap else None, seed=cfg["seed"])
+    net = ResNet50(num_classes=cfg["classes"], seed=hvd.rank()).to(dev)
+    net = net.to(memory_format=torch.channels_last)
+    sgd = torch.optim.SGD(net.parameters(), lr=cfg["base_lr"], momentum=0.9)
+    opt = hvd.DistributedOptimizer(sgd, named_parameters=net.named_parameters(),
+                                   compression=hvd.Compression.int8,
+                                   error_feedback=True)
+    state = {"params": net, "optimizer": sgd, "lr": cfg["base_lr"]}
+    cbs = CallbackList([
+        BroadcastGlobalVariablesCallback(root_rank=0),
+        LearningRateWarmupCallback(warmup_epochs=cfg["epochs"],
+                                   steps_per_epoch=ds.steps_per_epoch),
+        MetricAverageCallback()])
+    t0 = time.perf_counter()
+    cbs.on_train_begin(state)
+    res = {"rank": hvd.rank(), "size": hvd.size(), "backend": hvd.backend(),
+           "steps_per_epoch": ds.steps_per_epoch, "n_files": len(ds.paths),
+           "shards": [], "lrs": [], "metrics": [], "local_loss": [],
+           "sha": [], "losses": []}
+    for epoch in range(cfg["epochs"]):
+        ds.set_epoch(epoch)
+        res["shards"].append(ds._indices().tolist())
+        cbs.on_epoch_begin(epoch, state)
+        losses = []
+        for b, (x, y) in enumerate(ds):
+            for g in sgd.param_groups:
+                g["lr"] = state["lr"]
+            res["lrs"].append(state["lr"])
+            opt.zero_grad()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                logits = net(torch.from_numpy(x).to(dev))
+            loss = F.cross_entropy(logits.float(),
+                                   torch.from_numpy(y).long().to(dev))
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            cbs.on_batch_end(b, state)
+        local = float(torch.stack(losses).mean())
+        metrics = {"loss": local}
+        cbs.on_epoch_end(epoch, state, metrics)
+        res["local_loss"].append(local)
+        res["metrics"].append(metrics)
+        res["losses"] += [float(v) for v in losses]
+        res["sha"].append(params_sha256(net))
+    res["seconds"] = time.perf_counter() - t0
+    res["counts"] = ck.launch_counts()
+    return res
+
+
+def realdata_lr(epoch: int, batch: int, steps: int, size: int,
+                cfg: dict) -> float:
+    """The reference's warmup lr in force at ``batch`` of ``epoch``
+    (``horovod_tpu/callbacks.py``): ``base * (size * p + 1 - p)`` at ``p =
+    (epoch + batch / steps) / warmup``, ``base * size`` once warm."""
+    warmup, base = cfg["epochs"], cfg["base_lr"]
+    frac = epoch + min(1.0, batch / float(steps))
+    if frac >= warmup:
+        return base * size
+    p = frac / float(warmup)
+    return base * (size * p + (1 - p))
+
+
+def phase_realdata(fault=None, cfg: dict = REALDATA,
+                   device: str = "cuda") -> dict:
+    """Phase 9e: the real-data path at world 2 (two gloo processes sharing
+    the card) on a written image folder: disjoint shards covering the
+    truncated epoch, reshuffled identically by ``set_epoch``, parameters
+    bit-identical across ranks after each epoch, the averaged metric equal
+    on both ranks, the reference's warmup lr at every batch, #1 - #3
+    launched. ``fault="shard-overlap"``: both ranks read the same stride."""
+    import tempfile
+
+    import numpy as np
+
+    from horovod_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hvd_realdata_") as root:
+        files = write_image_folder(root, cfg)
+        written = time.perf_counter() - t0
+        ranks = testing.run_cluster(
+            realdata_worker, np=2, device=device,
+            args=(root, cfg, fault == "shard-overlap"), timeout=900)
+    n, steps = ranks[0]["n_files"], ranks[0]["steps_per_epoch"]
+    used = steps * cfg["batch"] * 2
+    checks = {}
+    cover = []
+    for epoch in range(cfg["epochs"]):
+        a, b = (set(r["shards"][epoch]) for r in ranks)
+        perm = np.random.RandomState(cfg["seed"] + epoch).permutation(
+            n)[:used]
+        cover.append(a.isdisjoint(b) and (a | b) == set(perm.tolist()))
+    checks["shards disjoint, covering the truncated epoch"] = all(cover)
+    checks["set_epoch reshuffles"] = all(
+        r["shards"][0] != r["shards"][1] for r in ranks)
+    checks["parameters bit-identical after each epoch"] = (
+        ranks[0]["sha"] == ranks[1]["sha"])
+    checks["averaged metric equal on both ranks"] = (
+        ranks[0]["metrics"] == ranks[1]["metrics"]
+        and all(abs(m["loss"] - (l0 + l1) / 2) <= 1e-6 * abs(m["loss"])
+                for m, l0, l1 in zip(ranks[0]["metrics"],
+                                     ranks[0]["local_loss"],
+                                     ranks[1]["local_loss"])))
+    want = [realdata_lr(e, b, steps, 2, cfg) for e in range(cfg["epochs"])
+            for b in range(steps)]
+    checks["the reference's warmup lr at every batch"] = all(
+        r["lrs"] == want for r in ranks)
+    checks["wire kernels launched (#1, #2, #3)"] = all(
+        r["counts"][k] > 0 for r in ranks
+        for k in ("int8_quantize_2d", "int8_dequantize_2d",
+                  "int8_quantize_pack_2d"))
+    checks["finite losses, gloo"] = all(
+        r["backend"] == "gloo" and all(math.isfinite(v) for v in r["losses"])
+        for r in ranks)
+    secs = time.perf_counter() - t0
+    log(f"phase 9e: ResNet-50 on a written folder ({files['npy']} .npy + "
+        f"{files['png']} PNG, {n} files, written in {written:.1f} s), world "
+        f"2 (gloo, one card), batch {cfg['batch']} a rank, {steps} steps "
+        f"an epoch x {cfg['epochs']}, packed int8 + EF: training "
+        f"{[round(r['seconds'], 1) for r in ranks]} s a rank, metrics "
+        f"{ranks[0]['metrics']}, lrs {ranks[0]['lrs']}, launches "
+        f"{[{k: v for k, v in r['counts'].items() if v} for r in ranks]}; "
+        f"checks {checks}; took {secs:.1f} s")
+    if not all(checks.values()):
+        raise ChecksFailed("phase 9e (the real-data path)", checks)
+    return {"ranks": ranks, "checks": checks, "files": files,
+            "seconds": secs}
+
+
+def zoo_fault_check(fault: str) -> int:
+    """``--fault dots-save-none`` (phase 9d) or ``shard-overlap`` (phase
+    9e): the phase runs with the fault and each check's verdict is
+    printed; ZOO_FAULT_CAUGHT when some check fails, 0 when all pass. Any
+    other error propagates (and exits 1)."""
+    phase = phase_lm_remat if fault == "dots-save-none" else phase_realdata
+    try:
+        checks = phase(fault=fault)["checks"]
+    except ChecksFailed as e:
+        checks = e.checks
+    caught = {k: not v for k, v in checks.items()}
+    print(json.dumps({"fault": fault, "caught": caught}), flush=True)
+    return ZOO_FAULT_CAUGHT if any(caught.values()) else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--report", metavar="PATH", default=None,
@@ -4447,7 +5069,7 @@ def main(argv=None) -> int:
     parser.add_argument("--fault",
                         choices=sorted(FAULTS) + ["flip-byte", "zero1",
                                                   "pipe-skip-stage",
-                                                  *MOE_FAULTS],
+                                                  *MOE_FAULTS, *ZOO_FAULTS],
                         default=None,
                         help="break ring attention (skip-hop, shift-k-off: "
                         "phases 6c and 6d only), a row-parallel reduce "
@@ -4458,7 +5080,10 @@ def main(argv=None) -> int:
                         "(moe-skip-dp-sum, a2a-swap-peers: phase 8b only) or "
                         "the pipeline (pipe-skip-stage: phase 8c only) on "
                         "purpose; exits 0 when each phase's agreement check "
-                        "fails")
+                        "fails; or make remat='dots' save nothing "
+                        "(dots-save-none: phase 9d only) or both ranks read "
+                        "one shard (shard-overlap: phase 9e only), which exit "
+                        f"{ZOO_FAULT_CAUGHT} when a check of the phase fails")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4491,6 +5116,8 @@ def main(argv=None) -> int:
         return zero1_fault_check()
     if args.fault in MOE_FAULTS + ("pipe-skip-stage",):
         return moe_fault_check(args.fault)
+    if args.fault in ZOO_FAULTS:
+        return zoo_fault_check(args.fault)
     if args.fault:
         return fault_check(args.fault)
 
@@ -4517,7 +5144,13 @@ def main(argv=None) -> int:
     lm_compiled = phase_compiled_lm(lm1)
     lm_small = phase_lm_small_agreement()
     engine1 = phase_engine_world1()
+    release()
+    vgg = phase_zoo_world1("9a")
+    inception = phase_zoo_world1("9b")
+    zoo_small = phase_zoo_small_agreement()
+    lm_remat = phase_lm_remat()
     hvd.shutdown()
+    realdata = phase_realdata()
     world2 = phase_world2()
     algorithms = phase_algorithms()
     zero1 = phase_zero1()
@@ -4566,7 +5199,12 @@ def main(argv=None) -> int:
             + [r["counts"] for r in mm_rs["ranks"] + tp_long["ranks"]
                + tp_hybrid["ranks"]]
             + [r["counts"] for r in moe1["runs"].values()]
-            + [r["counts"] for r in moe_grid["ranks"] + pipeline["ranks"]])
+            + [r["counts"] for r in moe_grid["ranks"] + pipeline["ranks"]]
+            + [z[w]["counts"] for z in (vgg, inception)
+               for w in ("int8", "none")]
+            + [inception["graphed"]["counts"], zoo_small["counts"]]
+            + [lm_remat[m]["counts"] for m in ("none", "full", "dots")]
+            + [r["counts"] for r in realdata["ranks"]])
     for k in kernels.values():
         k["launches"] = sum(c[k["name"]] for c in runs)
     missing = [k for k, v in kernels.items() if v["launches"] == 0]
@@ -4588,7 +5226,9 @@ def main(argv=None) -> int:
               "sp_long": sp_long, "sp_grid": sp_grid,
               "matmul_reduce_scatter": mm_rs, "tp": tp_long,
               "hybrid": tp_hybrid, "moe_world1": moe1, "moe_grid": moe_grid,
-              "pipeline": pipeline}
+              "pipeline": pipeline, "vgg16": vgg, "inception_v3": inception,
+              "zoo_small": zoo_small, "lm_remat": lm_remat,
+              "realdata": realdata}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

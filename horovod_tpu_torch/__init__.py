@@ -23,8 +23,11 @@ Imports ``torch`` and never ``jax`` or ``horovod_tpu``.
 
 from . import spmd
 from .basics import (Adasum, Average, Sum, backend, cross_rank, cross_size,
-                     device, init, is_initialized, local_rank, local_size,
-                     rank, shutdown, size)
+                     ddl_built, device, gloo_built, gloo_enabled, init,
+                     is_homogeneous, is_initialized, local_rank, local_size,
+                     mlsl_built, mpi_built, mpi_enabled,
+                     mpi_threads_supported, nccl_built, rank,
+                     register_shutdown_hook, shutdown, size, xla_built)
 from .exceptions import (DuplicateNameError, HorovodError,
                          HorovodInternalError, NotInitializedError)
 from .ops.collective_ops import (allgather, allgather_async, allreduce,
@@ -43,7 +46,10 @@ __all__ = [
     "allreduce_", "allreduce_async", "allreduce_async_", "alltoall",
     "backend", "broadcast", "broadcast_", "broadcast_async",
     "broadcast_async_", "broadcast_optimizer_state", "broadcast_parameters",
-    "cross_rank", "cross_size", "device", "init", "is_initialized", "join",
-    "local_rank", "local_size", "poll", "rank", "shutdown", "size", "spmd",
-    "synchronize",
+    "cross_rank", "cross_size", "ddl_built", "device", "gloo_built",
+    "gloo_enabled", "init", "is_homogeneous", "is_initialized", "join",
+    "local_rank", "local_size", "mlsl_built", "mpi_built", "mpi_enabled",
+    "mpi_threads_supported", "nccl_built", "poll", "rank",
+    "register_shutdown_hook", "shutdown", "size", "spmd", "synchronize",
+    "xla_built",
 ]

@@ -28,15 +28,19 @@ its own host and cross-host groups, for the two-level programs.
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from .exceptions import HorovodError, NotInitializedError
+from .utils.env import env_on
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 # Reduce-op constants, as in horovod_tpu.basics.
 Average = 0
@@ -63,6 +67,31 @@ class _GlobalState:
 
 _state = _GlobalState()
 _init_lock = threading.Lock()
+_shutdown_hooks = []
+
+# HOROVOD_LOG_LEVEL's names (the reference's logging.h levels; TRACE and
+# FATAL map to the nearest stdlib level)
+_LOG_LEVELS = {"TRACE": logging.DEBUG, "DEBUG": logging.DEBUG,
+               "INFO": logging.INFO, "WARNING": logging.WARNING,
+               "ERROR": logging.ERROR, "FATAL": logging.CRITICAL}
+
+
+def _setup_logging() -> None:
+    """Apply ``HOROVOD_LOG_LEVEL`` / ``HOROVOD_LOG_HIDE_TIME`` to the
+    ``horovod_tpu_torch`` logger only (never the root), and give it a
+    handler only if neither it nor the root has one (the application's
+    logging setup wins)."""
+    level = os.environ.get("HOROVOD_LOG_LEVEL", "").upper()
+    if level in _LOG_LEVELS:
+        logger.setLevel(_LOG_LEVELS[level])
+    if logger.handlers or logging.getLogger().handlers:
+        return
+    handler = logging.StreamHandler()
+    fmt = "[%(asctime)s] %(levelname)s %(name)s: %(message)s"
+    if env_on("HOROVOD_LOG_HIDE_TIME"):
+        fmt = "%(levelname)s %(name)s: %(message)s"
+    handler.setFormatter(logging.Formatter(fmt))
+    logger.addHandler(handler)
 
 
 def _resolve_device(device, local_rank: int) -> torch.device:
@@ -81,16 +110,19 @@ def _resolve_device(device, local_rank: int) -> torch.device:
     return dev
 
 
-def init(device=None) -> None:
+def init(ranks: Optional[Sequence[int]] = None, *, device=None) -> None:
     """Initialize the framework. Idempotent.
 
     ``device``: ``None`` or ``"cuda"`` (this rank's card, ``cuda:<local
-    rank mod card count>``), ``"cuda:<i>"``, or ``"cpu"``.
+    rank mod card count>``), ``"cuda:<i>"``, or ``"cpu"``. ``ranks`` is
+    accepted for parity with the reference's subset init, which accepts and
+    ignores it too: every launched process joins.
     """
     global _state
     with _init_lock:
         if _state.initialized:
             return
+        _setup_logging()
         nproc = int(os.environ.get("HVD_NUM_PROCS", "1"))
         if nproc > 1:
             pid = int(os.environ["HVD_PROCESS_ID"])
@@ -145,6 +177,24 @@ def shutdown() -> None:
         if _state.mode == "multiprocess" and dist.is_initialized():
             dist.destroy_process_group()
         _state = _GlobalState()
+    for fn in _shutdown_hooks:
+        try:
+            fn()
+        except Exception:
+            logger.exception("shutdown hook %r failed", fn)
+
+
+def register_shutdown_hook(fn) -> None:
+    """Run ``fn()`` after every ``shutdown`` (per-module cleanup). A hook
+    with the same module and qualified name replaces the one registered
+    before it, so a reimported module does not pile up copies."""
+    key = (getattr(fn, "__module__", None), getattr(fn, "__qualname__", None))
+    for i, existing in enumerate(_shutdown_hooks):
+        if (getattr(existing, "__module__", None),
+                getattr(existing, "__qualname__", None)) == key:
+            _shutdown_hooks[i] = fn
+            return
+    _shutdown_hooks.append(fn)
 
 
 def process_group(ranks):
@@ -209,3 +259,64 @@ def _executor():
 
 def _engine():
     return _require_init().engine
+
+
+def is_homogeneous() -> bool:
+    """Whether every host runs the same number of ranks: the launcher's
+    global fact ``HVD_UNIFORM_LOCAL_SIZE`` (0 when hosts hold unequal
+    counts; empty counts as unset), True without it (one host)."""
+    _require_init()
+    uniform = os.environ.get("HVD_UNIFORM_LOCAL_SIZE")
+    if uniform:
+        try:
+            return int(uniform) > 0
+        except ValueError:
+            raise ValueError(
+                f"HVD_UNIFORM_LOCAL_SIZE={uniform!r} is not an integer; "
+                "the launcher exports the uniform local size (0 when "
+                "hosts hold unequal rank counts)")
+    return True
+
+
+# Build and runtime probes, as the reference's top level exports them. They
+# tell the truth about this package: no MPI, no DDL / MLSL, no XLA; NCCL
+# and gloo are torch.distributed's backends, built when its build has them.
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    """MPI is never the control or data plane here."""
+    return False
+
+
+def gloo_enabled() -> bool:
+    """Whether this process runs over gloo (the backend on the CPU or when
+    ranks share a card)."""
+    return is_initialized() and _state.backend == "gloo"
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mlsl_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    """No XLA here: the collectives are torch.distributed's and the kernels
+    CUDA C++."""
+    return False

@@ -1,6 +1,6 @@
-"""Parameters of the Flax ResNet (``horovod_tpu/models/resnet.py``) and
-transformer LM (``horovod_tpu/models/transformer.py``) as a ``state_dict``
-of :mod:`.resnet` and :mod:`.transformer`; the MoE layer's
+"""Parameters of the Flax ResNet (``horovod_tpu/models/resnet.py``), VGG,
+Inception V3, MNIST nets and transformer LM (``horovod_tpu/models/``) as a
+``state_dict`` of the port's model of the same name; the MoE layer's
 (``horovod_tpu/parallel/expert.py``) as the port's functional tree or
 ``MoEMLP``'s ``state_dict``; stacked pipeline stages as tensors.
 
@@ -128,3 +128,70 @@ def moe_state_dict_from_flax(params: Dict) -> Dict:
             "router.bias": _tensor("bias", params["router"]["bias"]),
             "w_in": _tensor("w_in", params["w_in"]),
             "w_out": _tensor("w_out", params["w_out"])}
+
+
+_SEQ = re.compile(r"^(Conv|Dense)_(\d+)$")
+_SEQ_LIST = {"Conv": "convs", "Dense": "dense"}
+
+
+def vgg_state_dict_from_flax(params: Dict) -> Dict:
+    """``params``: the Flax ``VGG``'s params collection as nested dicts of
+    numpy arrays. Returns a ``state_dict`` for the torch ``VGG`` of the same
+    cfg and input size: ``Conv_<i>`` / ``Dense_<i>`` become ``convs.<i>`` /
+    ``dense.<i>``, each ``kernel`` transposed to ``weight``. The first
+    dense kernel is only transposed: both models flatten in (h, w, c)
+    order."""
+    out = {}
+    for top, leaves in params.items():
+        m = _SEQ.match(top)
+        if not m:
+            raise KeyError(f"unknown Flax module {top!r}")
+        for leaf, arr in leaves.items():
+            if leaf not in ("kernel", "bias"):
+                raise KeyError(f"unknown Flax leaf {top}/{leaf}")
+            out[f"{_SEQ_LIST[m.group(1)]}.{m.group(2)}.{_leaf_name(leaf)}"] \
+                = _tensor(leaf, arr)
+    return out
+
+
+def mnist_state_dict_from_flax(params: Dict) -> Dict:
+    """``params`` of the Flax ``MNISTConvNet`` or ``MNISTMLP`` (numpy) as
+    the torch model's ``state_dict``: the names map as VGG's do."""
+    return vgg_state_dict_from_flax(params)
+
+
+_INCEPTION_TOP = re.compile(
+    r"^(?:ConvBN|InceptionA|ReductionA|InceptionB|ReductionB|InceptionC)"
+    r"_\d+$")
+_CONVBN = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+
+
+def inception_state_dict_from_flax(params: Dict, batch_stats: Dict) -> Dict:
+    """``params`` / ``batch_stats`` of the Flax ``InceptionV3`` (numpy) as
+    the torch ``InceptionV3``'s ``state_dict``: the port keeps Flax's
+    module names, so a path maps token by token (``Conv_0`` -> ``conv``,
+    ``BatchNorm_0`` -> ``bn``, ``kernel`` -> ``weight``, ...)."""
+    out = {}
+
+    def walk(path, tree):
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                if key in _CONVBN:
+                    name = _CONVBN[key]
+                elif (not path and (_INCEPTION_TOP.match(key)
+                                    or key == "Dense_0")) or (
+                        path and key.startswith("ConvBN_")):
+                    name = key
+                else:
+                    raise KeyError(f"unknown Flax module "
+                                   f"{'/'.join(path + [key])!r}")
+                walk(path + [name], sub)
+            else:
+                if key not in ("kernel", "bias", "scale", "mean", "var"):
+                    raise KeyError(f"unknown Flax leaf "
+                                   f"{'/'.join(path + [key])!r}")
+                out[".".join(path + [_leaf_name(key)])] = _tensor(key, sub)
+
+    walk([], params)
+    walk([], batch_stats)
+    return out

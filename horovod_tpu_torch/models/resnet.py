@@ -19,7 +19,7 @@ Matches the Flax model layer for layer, so that its parameters convert
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -32,32 +32,62 @@ def _same_pads(n: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-class Conv(nn.Module):
-    """Bias-free conv with Flax ``'SAME'`` padding (or an explicit one)."""
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: Optional[int] = None):
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv``: kernel ``k`` (an int or ``(kh, kw)``), ``stride``
+    (an int or a pair), ``padding`` ``"SAME"`` (Flax's, computed per input
+    size, so it may be asymmetric), ``"VALID"`` or an explicit int; no bias
+    unless ``bias=True`` (Flax's ``use_bias``)."""
+
+    def __init__(self, cin: int, cout: int, k, stride=1,
+                 padding: Union[int, str] = "SAME", bias: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        self.k, self.stride, self.padding = k, stride, padding
+        self.k, self.stride = _pair(k), _pair(stride)
+        self.weight = nn.Parameter(torch.empty(cout, cin, *self.k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        if isinstance(padding, str) and padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}: expected 'SAME', "
+                             "'VALID' or an int")
+        self.padding = padding
 
     def forward(self, x):
-        if self.padding is not None:
-            return F.conv2d(x, self.weight, None, self.stride, self.padding)
-        top, bottom = _same_pads(x.shape[-2], self.k, self.stride)
-        left, right = _same_pads(x.shape[-1], self.k, self.stride)
+        if self.padding == "VALID":
+            return F.conv2d(x, self.weight, self.bias, self.stride, 0)
+        if self.padding != "SAME":
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            self.padding)
+        top, bottom = _same_pads(x.shape[-2], self.k[0], self.stride[0])
+        left, right = _same_pads(x.shape[-1], self.k[1], self.stride[1])
         if top or bottom or left or right:
             if (top, left) == (bottom, right):
-                return F.conv2d(x, self.weight, None, self.stride,
+                return F.conv2d(x, self.weight, self.bias, self.stride,
                                 (top, left))
             x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, None, self.stride, 0)
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0)
+
+
+@torch.no_grad()
+def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
+    """LeCun-normal conv and dense kernels (Flax's default), drawn in module
+    order from ``generator``, and zero biases; BN scales keep their
+    construction values."""
+    for m in module.modules():
+        if isinstance(m, (Conv, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            w = torch.randn(m.weight.shape, generator=generator)
+            m.weight.copy_(w * math.sqrt(1.0 / fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW channels:
-    batch statistics in training (biased variance, at least f32), running
-    statistics in eval."""
+    """Flax ``nn.BatchNorm(momentum=0.9, epsilon=eps)`` over NCHW channels
+    (the ResNets' eps is 1e-5, Inception's 1e-3): batch statistics in
+    training (biased variance, at least f32), running statistics in
+    eval."""
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5,
                  zero_scale: bool = False):
@@ -148,17 +178,8 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(cin, num_classes)
         self.init_weights(torch.Generator().manual_seed(seed))
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """LeCun-normal conv and dense kernels (Flax's default), zero biases;
-        BN scales keep their construction values."""
-        for m in self.modules():
-            if isinstance(m, (Conv, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                w = torch.randn(m.weight.shape, generator=generator)
-                m.weight.copy_(w * math.sqrt(1.0 / fan_in))
-                if isinstance(m, nn.Linear):
-                    m.bias.zero_()
+        lecun_normal_(self, generator)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels_last strides

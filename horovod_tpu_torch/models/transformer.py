@@ -16,9 +16,17 @@ with the reference's numerics made explicit:
 * The tied head promotes both operands to ``dtype`` (Flax's
   ``Embed.attend``), so a bf16 model's logits are a bf16 product, then f32.
 * Attention is pluggable; the default is causal flash attention (K5/K7).
+* ``remat``: ``"full"`` recomputes each block in the backward;
+  ``"dots"`` is the reference's ``dots_with_no_batch_dims_saveable``: the
+  outputs of the products without a batch dimension (``aten.mm`` /
+  ``aten.addmm``: the qkv, proj, mlp_in and mlp_out projections) are
+  kept, everything else of the block is recomputed (both LayerNorms, the
+  attention forward, GELU, the weights' casts). Torch's selective
+  checkpoint (non-reentrant) does it; a kernel whose launch dispatch does
+  not see (K5, K8) simply runs again with the recomputed inputs.
 
-Not ported yet: ``cached_attention`` and the KV-cache path (serving), and
-``remat="dots"``; both raise ``NotImplementedError``.
+Not ported yet: ``cached_attention`` and the KV-cache path (serving), which
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,14 +37,28 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import flash_attention
 from ..ops.layer_norm import fused_layer_norm
 
 INIT_STD = 0.02
 LN_EPS = 1e-6
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots")
+#: the ops whose outputs ``remat="dots"`` keeps: the products without a
+#: batch dimension (``aten.bmm`` has one and is recomputed)
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def default_attention(q, k, v):
@@ -117,7 +139,9 @@ class TransformerLM(nn.Module):
     Parameters are drawn from ``normal(0.02)`` (dense weights, token and
     position tables) with a CPU generator seeded by ``seed``, so a seed
     gives the same weights on every device; biases are zero and LayerNorm
-    scales one. ``remat="full"`` recomputes each block in the backward."""
+    scales one. ``remat``: ``"none"``, ``"full"`` (each block recomputed
+    in the backward) or ``"dots"`` (the block's products kept, the rest
+    recomputed; see the module's docstring)."""
 
     def __init__(self, vocab_size: int, num_layers: int = 12,
                  num_heads: int = 12, d_model: int = 768,
@@ -125,13 +149,9 @@ class TransformerLM(nn.Module):
                  attn_fn: Optional[Callable] = None, remat: str = "none",
                  fused_ln: bool = False, seed: int = 0):
         super().__init__()
-        if remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save the matmul outputs, recompute the rest) "
-                "is not ported yet; use 'none' or 'full'")
         if remat not in REMAT:
             raise ValueError(f"remat={remat!r}; expected one of "
-                             f"{sorted(REMAT + ('dots',))}")
+                             f"{sorted(REMAT)}")
         self.vocab_size, self.max_seq_len = vocab_size, max_seq_len
         self.dtype, self.remat = dtype, remat
         attn = attn_fn if attn_fn is not None else default_attention
@@ -161,9 +181,13 @@ class TransformerLM(nn.Module):
                              f"exceeds max_seq_len={self.max_seq_len}")
         x = (F.embedding(tokens, self.tok_emb.weight).to(self.dtype)
              + self.pos_emb[pos_offset:pos_offset + t].to(self.dtype))
+        remat = self.remat if torch.is_grad_enabled() else "none"
         for block in self.blocks:
-            if self.remat == "full" and torch.is_grad_enabled():
+            if remat == "full":
                 x = checkpoint(block, x, use_reentrant=False)
+            elif remat == "dots":
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=_dots_context)
             else:
                 x = block(x)
         x = self.ln_f(x)

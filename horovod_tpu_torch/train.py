@@ -1,7 +1,9 @@
 """Synthetic data-parallel training: the port's main path (the loop of the
 reference's ``bench.py``).
 
-Synthetic ImageNet-shaped images from ``RandomState(0)`` and labels from
+The image model is any ``BENCH_MODEL`` family, by name (``IMAGE_MODELS``:
+the ResNets, Inception V3, VGG-16 / 19 and the MNIST nets). Synthetic
+ImageNet-shaped images from ``RandomState(0)`` and labels from
 ``RandomState(1)`` form a global batch of ``batch * size()`` samples; rank r
 trains on its ``batch``-sized shard. SGD (lr 0.01, momentum 0.9) is wrapped
 in :func:`DistributedOptimizer`, which averages the gradients
@@ -34,9 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import basics, spmd
+from . import basics, models, spmd
 from .basics import Adasum, Average
-from .models import resnet
+from .models import mnist
+from .models.vgg import Dropout
 from .models.transformer import TransformerLM, lm_loss, lm_loss_chunked
 from .ops import compression as comp
 from .ops import cuda_kernels as ck
@@ -78,19 +81,60 @@ def params_sha256(model: torch.nn.Module) -> str:
     return h.hexdigest()
 
 
+# The image models a trainer builds by name (bench.py's BENCH_MODEL
+# families, and the MNIST nets of the examples): the class, the channels of
+# the synthetic images it takes, and the size keywords its constructor
+# takes beside num_classes and seed.
+IMAGE_MODELS = {name: (getattr(models, name), 3, ("num_filters",))
+                for name in ("ResNet18", "ResNet34", "ResNet50", "ResNet101",
+                             "ResNet152")}
+IMAGE_MODELS.update(InceptionV3=(models.InceptionV3, 3, ()),
+                    VGG16=(models.VGG16, 3, ("image_size",)),
+                    VGG19=(models.VGG19, 3, ("image_size",)),
+                    MNISTConvNet=(mnist.MNISTConvNet, 1, ("image_size",)),
+                    MNISTMLP=(mnist.MNISTMLP, 1, ("image_size",)))
+
+
+def image_model(model: str, num_classes: int = 1000, seed: int = 0,
+                image: int = 224, num_filters: Optional[int] = None
+                ) -> torch.nn.Module:
+    """The image model ``model`` (a key of ``IMAGE_MODELS``) on the CPU,
+    weights from ``seed``, for ``image`` x ``image`` inputs.
+    ``num_filters``: the ResNets' width (64, the published one, if None);
+    any other family raises."""
+    if model not in IMAGE_MODELS:
+        raise ValueError(f"model {model!r}: expected one of "
+                         f"{sorted(IMAGE_MODELS)}")
+    cls, _, knobs = IMAGE_MODELS[model]
+    kw = dict(num_classes=num_classes, seed=seed)
+    if num_filters is not None:
+        if "num_filters" not in knobs:
+            raise ValueError(f"num_filters sets a ResNet's width; {model} "
+                             "has no such knob")
+        kw["num_filters"] = num_filters
+    if "image_size" in knobs:
+        kw["image_size"] = image
+    return cls(**kw)
+
+
+def has_dropout(net: torch.nn.Module) -> bool:
+    """Whether ``net`` drops anything in training."""
+    return any(isinstance(m, Dropout) and m.rate > 0 for m in net.modules())
+
+
 def synthetic_batch(batch: int, image: int, num_classes: int, rank: int,
-                    world: int):
+                    world: int, channels: int = 3):
     """This rank's shard of the seeded global batch: NHWC f32 images and
     int64 labels, as numpy arrays."""
     total = batch * world
-    images = np.random.RandomState(0).randn(total, image, image, 3).astype(
-        np.float32)
+    images = np.random.RandomState(0).randn(total, image, image,
+                                            channels).astype(np.float32)
     labels = np.random.RandomState(1).randint(0, num_classes, (total,))
     sl = slice(rank * batch, (rank + 1) * batch)
     return images[sl], labels[sl].astype(np.int64)
 
 
-class ResNetTrainer:
+class ImageTrainer:
     """The model, data and optimizer of :func:`synthetic_train`, built on
     this rank's device (the framework is initialized on ``device`` if it is
     not yet); :meth:`step` takes one training step and returns the loss (a
@@ -102,7 +146,7 @@ class ResNetTrainer:
                  image: int = 224, compression=None,
                  error_feedback: bool = True, device: Optional[str] = None,
                  num_classes: int = 1000, seed: int = 0, op: str = "average",
-                 num_filters: int = 64, plane: str = "engine",
+                 num_filters: Optional[int] = None, plane: str = "engine",
                  graph: Optional[bool] = None, zero1: bool = False):
         if op not in ("average", "adasum"):
             raise ValueError(f"op {op!r}: expected 'average' or 'adasum'")
@@ -125,18 +169,25 @@ class ResNetTrainer:
                 comp.Int4Compressor):
             raise ValueError(f"the compiled plane's wire is 'none', 'int8' "
                              f"or 'int4', not {compression!r}")
+        net = image_model(model, num_classes=num_classes, seed=seed,
+                          image=image, num_filters=num_filters)
+        if plane == "compiled" and has_dropout(net):
+            if graph:
+                raise ValueError(f"{model}'s dropout draws from the model's "
+                                 "own generator, which a CUDA graph cannot "
+                                 "replay: pass graph=False")
+            graph = False
         basics.init(device=device)
         self.device = dev = basics.device()
         self.batch, self.plane, self.op = batch, plane, op
         self.on_cuda = on_cuda = dev.type == "cuda"
-        self.net = net = getattr(resnet, model)(
-            num_classes=num_classes, seed=seed,
-            num_filters=num_filters).to(dev)
+        self.net = net = net.to(dev)
         if on_cuda:
             net = net.to(memory_format=torch.channels_last)
         broadcast_parameters(net.state_dict(), root_rank=0)
         images, labels = synthetic_batch(batch, image, num_classes,
-                                         basics.rank(), basics.size())
+                                         basics.rank(), basics.size(),
+                                         IMAGE_MODELS[model][1])
         self.x = torch.from_numpy(images).to(dev)
         self.y = torch.from_numpy(labels).to(dev)
         self.opt = torch.optim.SGD(net.parameters(), lr=0.01, momentum=0.9)
@@ -181,12 +232,16 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
                     compression=None, error_feedback: bool = True,
                     device: Optional[str] = None, num_classes: int = 1000,
                     seed: int = 0, op: str = "average",
-                    num_filters: int = 64, plane: str = "engine",
+                    num_filters: Optional[int] = None, plane: str = "engine",
                     graph: Optional[bool] = None, zero1: bool = False
                     ) -> dict:
-    """Train ``model`` for ``warmup + steps`` steps on synthetic data.
+    """Train ``model`` (a key of ``IMAGE_MODELS``) for ``warmup + steps``
+    steps on synthetic data.
 
-    ``num_filters``: the model's width (64 is the published one).
+    ``num_filters``: a ResNet's width (64, the published one, if None;
+    other families raise). On the compiled plane a model with dropout (VGG,
+    MNISTConvNet) runs eagerly: a CUDA graph cannot replay the model's own
+    generator.
     ``op``: ``"average"`` (gradients averaged; ``compression`` defaults to
     ``"int8"``) or ``"adasum"`` (the delta flow; ``compression`` is
     ``"none"``, its default, or ``"fp16"``, and error feedback is off).
@@ -202,12 +257,12 @@ def synthetic_train(model: str = "ResNet50", batch: int = 32,
     ``launches_per_replay``.
     """
     before = ck.launch_counts()
-    tr = ResNetTrainer(model, batch=batch, image=image,
-                       compression=compression,
-                       error_feedback=error_feedback, device=device,
-                       num_classes=num_classes, seed=seed, op=op,
-                       num_filters=num_filters, plane=plane, graph=graph,
-                       zero1=zero1)
+    tr = ImageTrainer(model, batch=batch, image=image,
+                      compression=compression,
+                      error_feedback=error_feedback, device=device,
+                      num_classes=num_classes, seed=seed, op=op,
+                      num_filters=num_filters, plane=plane, graph=graph,
+                      zero1=zero1)
     net, dev = tr.net, tr.device
     net.train()
     if tr.on_cuda:

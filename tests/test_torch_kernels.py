@@ -373,7 +373,8 @@ def test_import_hygiene_no_jax_no_reference():
     jax and no module of the reference package; the sources say so too."""
     code = ("import json, sys; import horovod_tpu_torch, "
             "horovod_tpu_torch.train, horovod_tpu_torch.testing, "
-            "horovod_tpu_torch.spmd; "
+            "horovod_tpu_torch.spmd, horovod_tpu_torch.data, "
+            "horovod_tpu_torch.callbacks, horovod_tpu_torch.models; "
             "print(json.dumps(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True,

@@ -287,19 +287,95 @@ def test_synthetic_lm_train_needs_a_card_unless_the_cpu_is_asked(
 
 
 def test_remat_full_matches_none_and_unported_paths_raise():
+    """``remat="full"`` and ``"dots"`` change what the backward recomputes,
+    never the math: on the CPU their gradients equal ``"none"``'s bit for
+    bit (on one thread: threaded CPU BLAS may split the tied head's sums
+    another way from one call to the next). The unported KV-cache path
+    raises."""
     x, y = _tokens()
     grads = []
-    for remat in ("none", "full"):
-        net = tf.TransformerLMTiny(vocab_size=VOCAB, dtype=torch.float32,
-                                   remat=remat)
-        tf.lm_loss(net(torch.from_numpy(x)), torch.from_numpy(y)).backward()
-        grads.append({k: p.grad for k, p in net.named_parameters()})
-    for k in grads[0]:
-        assert torch.equal(grads[0][k], grads[1][k]), k
-    with pytest.raises(NotImplementedError, match="dots"):
-        tf.TransformerLMTiny(vocab_size=VOCAB, remat="dots")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for remat in ("none", "full", "dots"):
+            net = tf.TransformerLMTiny(vocab_size=VOCAB, dtype=torch.float32,
+                                       remat=remat)
+            tf.lm_loss(net(torch.from_numpy(x)),
+                       torch.from_numpy(y)).backward()
+            grads.append({k: p.grad for k, p in net.named_parameters()})
+    finally:
+        torch.set_num_threads(threads)
+    for other in grads[1:]:
+        for k in grads[0]:
+            assert torch.equal(grads[0][k], other[k]), k
+    with pytest.raises(ValueError, match="remat"):
+        tf.TransformerLMTiny(vocab_size=VOCAB, remat="bogus")
     net = tf.TransformerLMTiny(vocab_size=VOCAB, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="cached_attention"):
         net(torch.from_numpy(x), kv_cache=(None, None, None))
     with pytest.raises(ValueError, match="max_seq_len"):
         net(torch.from_numpy(x), pos_offset=400)
+
+
+def test_remat_dots_gradients_match_the_reference_dots():
+    """The port's ``remat="dots"`` against the reference's
+    ``TransformerLMTiny(remat="dots")`` (``jax.checkpoint`` with
+    ``dots_with_no_batch_dims_saveable``) on the same weights, to the
+    reference test's own 1e-6 (``tests/test_transformer.py:185-199``)."""
+    _, params = _reference()
+    model = ref_tf.TransformerLMTiny(vocab_size=VOCAB, dtype=jnp.float32,
+                                     remat="dots")
+    x, y = _tokens()
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    ref = jax.grad(lambda p: ref_tf.lm_loss(model.apply({"params": p}, xj),
+                                            yj))(params)
+    want = transformer_state_dict_from_flax(_np_tree(ref))
+    net = _port()
+    net.remat = "dots"
+    tf.lm_loss(net(torch.from_numpy(x)), torch.from_numpy(y)).backward()
+    for name, p in net.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+def _activation_bytes(remat: str) -> int:
+    """Bytes the autograd graph of one forward keeps for the backward:
+    every op's output storage is recorded (a dispatch mode) and those still
+    alive once the forward's locals are gone, the loss aside, are summed.
+    ``saved_tensors_hooks`` cannot see them all: non-reentrant checkpoint
+    and its selective cache keep theirs apart (through an outer hook
+    ``"full"`` and ``"dots"`` pack the same bytes)."""
+    import gc
+    import weakref
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.storages = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    self.storages[st.data_ptr()] = (weakref.ref(st),
+                                                    st.nbytes())
+            return out
+
+    x, y = _tokens()
+    net = tf.TransformerLMTiny(vocab_size=VOCAB, dtype=torch.float32,
+                               remat=remat)
+    with Record() as rec:
+        loss = tf.lm_loss(net(torch.from_numpy(x)), torch.from_numpy(y))
+    gc.collect()
+    held = sum(n for ref, n in rec.storages.values() if ref() is not None)
+    loss.backward()  # the graph was whole
+    return held
+
+
+def test_remat_dots_keeps_less_than_none_and_more_than_full():
+    held = {m: _activation_bytes(m) for m in ("none", "full", "dots")}
+    assert held["full"] < held["dots"] < held["none"], held
