@@ -166,16 +166,21 @@ CUDA kernels of ``horovod_tpu_torch/csrc`` (``wire_quant.cu``, ``adasum.cu``,
 6d. does the same at medium widths, 2 layers, on a dp=2 x sp=2 grid with a
    global batch of 2 x 4096;
 7. checks that the SASS of K10's bf16 kernels (``matmul.cu``) holds
-   HGMMA, UTMALDG and UTMASTG (wgmma, TMA loads and stores); holds the
+   HGMMA, UTMALDG and UTMASTG (wgmma, TMA loads and stores), and that of
+   its two f32 kernels LDS.128, LDGSTS or UTMALDG (cp.async or TMA loads)
+   and at least 8 FFMAs for each shared-memory load; holds the
    matmul kernel K10 (``matmul_2d``) against its twin on the
    card, to the stated tolerance: the fused matmul + reduce-scatter ring's
    chunks at GPT-2-medium widths and tp = 4 (the row-parallel MLP
    ``[2048, 1024] @ [1024, 1024]`` and the LM head ``[2048, 256] @ [256,
-   32768]``, bf16), f32, shapes of several tiles in M, K and N, M = 8, and
-   M = 520 on each of the bf16 kernel's two schedules (B resident, or A
-   and B streamed);
-   checks two launches byte-equal; times kernel, twin and ``torch.matmul``
-   (run right after phase 5, early in the process);
+   32768]``) in bf16 and in f32, shapes of several tiles in M, K and N,
+   M = 8, and M = 520 on each schedule of the bf16 kernels (B resident,
+   or A and B streamed) and of the f32 kernel (128 x 128 or 32 x 128
+   tiles), with N = 128 and K = 128, 256 and 1024;
+   checks two launches byte-equal and that a launch into the first M rows
+   of a larger buffer leaves the rows after them as they were; times
+   kernel, twin and ``torch.matmul`` at both chunks in both dtypes (TF32
+   off; run right after phase 5, early in the process);
 7b. runs ``matmul_reduce_scatter`` on world size 4 (gloo, one card) at
    those chunks' full operands, ``x [8192, 1024] @ w [1024, 1024]`` and
    ``x [8192, 256] @ w [256, 32768]`` bf16, different on every rank: rank
@@ -935,13 +940,19 @@ SM90_KERNELS = ("flash_fwd_sm90", "flash_fwd_step_sm90", "flash_bwd_dq_sm90",
                 "flash_bwd_dkv_sm90")
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG")  # wgmma, TMA load, TMA store
+# wgmma, TMA load, TMA store; shared-memory loads (every width, and the
+# 16-byte ones), f32 FMAs, cp.async copies
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDS", "LDS.128", "FFMA",
+            "LDGSTS")
+MM_BF16_OPS = ("HGMMA", "UTMALDG", "UTMASTG")
+MM_F32_FFMA_PER_LDS = 8
 
 
 def sass_counts(library: str) -> dict:
-    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store)
-    instructions in each kernel of the built ``csrc/<library>.cu``, by
-    mangled kernel name, from ``cuobjdump -sass``."""
+    """The instructions of ``SASS_OPS`` in each kernel of the built
+    ``csrc/<library>.cu``, by mangled kernel name, from ``cuobjdump
+    -sass`` (a line counts toward each op it contains: an LDS.128 is an
+    LDS too)."""
     from horovod_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
@@ -969,7 +980,7 @@ def phase_lm_kernels(rate: float) -> dict:
 
     sass = {short: c for fn, c in sass_counts("flash_attention_sm90").items()
             for short in SM90_KERNELS if f"{short}_kernel" in fn}
-    log(f"phase 5: HGMMA / UTMALDG / UTMASTG instructions in the SASS of "
+    log(f"phase 5: {' / '.join(SASS_OPS)} instructions in the SASS of "
         f"flash_attention_sm90.cu: {sass}")
     if (sorted(sass) != sorted(SM90_KERNELS)
             or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
@@ -3722,6 +3733,12 @@ MM_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
 # the LM head's d_model 1024 into 4): the chunks of the fused matmul +
 # reduce-scatter ring over 8 x 1024 tokens, rows 8192 / 4.
 MM_CHUNKS = {"mlp_out": (2048, 1024, 1024), "lm_head": (2048, 256, 32768)}
+# ragged M on each schedule of the f32 kernel, N = 128, K = 128 / 256 / 1024
+MM_F32_RAGGED = {"M=520 f32, K=256, 128 x 128 tiles": (520, 256, 32768),
+                 "M=520 f32, K=1024, 32 x 128 tiles": (520, 1024, 1024),
+                 "M=520 f32, K=256, N=128, 32 x 128 tiles": (520, 256, 128),
+                 "M=8 f32, K=128, N=128": (8, 128, 128),
+                 "M=8 f32, K=1024, N=128": (8, 1024, 128)}
 TP = dict(tp=4, batch=8)
 HYBRID = dict(dp=2, tp=2, sp=2, layers=2, batch=2, seq=4096)
 
@@ -3735,23 +3752,36 @@ def mm_tolerance(x, w, k_out, t_out) -> torch.Tensor:
 
 
 def phase_matmul_kernel(rate: float) -> dict:
-    """Phase 7: K10 against its twin on the card at the ring's two chunk
-    shapes (bf16), in f32, at a shape where M, K and N each take more than
-    one tile (bf16 and f32) and at the smallest M; two launches byte-equal;
-    times of kernel, twin and ``torch.matmul`` (cuBLAS) at the chunks."""
+    """Phase 7: the SASS of K10's kernels; K10 against its twin on the card
+    at the ring's two chunk shapes in bf16 and f32, at shapes where M, K
+    and N each take more than one tile, and at ragged M on each schedule
+    of both routes; two launches byte-equal, rows past M untouched; times
+    of kernel, twin and ``torch.matmul`` (cuBLAS) at the chunks."""
     from horovod_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
-    sass = {fn: c for fn, c in sass_counts("matmul").items()
-            if "hvd_mm_wgmma" in fn}
-    log(f"phase 7: HGMMA / UTMALDG / UTMASTG instructions in the SASS of "
-        f"matmul.cu's bf16 kernels: {sass} (counted in "
+    counts = sass_counts("matmul")
+    sass = {fn: {op: c[op] for op in MM_BF16_OPS}
+            for fn, c in counts.items() if "hvd_mm_wgmma" in fn}
+    sass_f32 = {fn: c for fn, c in counts.items() if "hvd_mm_fma" in fn}
+    log(f"phase 7: {' / '.join(MM_BF16_OPS)} instructions in the SASS of "
+        f"matmul.cu's bf16 kernels: {sass}; {' / '.join(SASS_OPS[3:])} "
+        f"(and UTMALDG) in its f32 kernels: {sass_f32} (counted in "
         f"{time.perf_counter() - t0:.1f} s)")
     if len(sass) != 2 or any(0 in c.values() for c in sass.values()):
         raise AssertionError(f"K10's bf16 kernels are not wgmma + TMA loads "
                              f"and stores: {sass}")
+    if len(sass_f32) != 2 or any(
+            not c["LDS.128"] or not (c["LDGSTS"] or c["UTMALDG"])
+            or c["FFMA"] < MM_F32_FFMA_PER_LDS * c["LDS"]
+            for c in sass_f32.values()):
+        raise AssertionError(
+            f"K10's f32 kernels lack 16-byte shared loads, asynchronous "
+            f"copies or {MM_F32_FFMA_PER_LDS} FFMAs a shared load: "
+            f"{sass_f32}")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    cases = [(f"{name} chunk", (m, k, n), torch.bfloat16)
+    cases = [(f"{name} chunk{tag}", (m, k, n), dt)
+             for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32"))
              for name, (m, k, n) in MM_CHUNKS.items()]
     cases += [("f32", (256, 512, 384), torch.float32),
               ("multi-tile bf16", (520, 384, 640), torch.bfloat16),
@@ -3761,6 +3791,8 @@ def phase_matmul_kernel(rate: float) -> dict:
                torch.bfloat16),
               ("M=520 bf16, resident B", (520, 256, 32768),
                torch.bfloat16)]
+    cases += [(what, shape, torch.float32)
+              for what, shape in MM_F32_RAGGED.items()]
     checks, worst, timed = [], 0.0, {}
     for what, (m, k, n), dt in cases:
         x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -3768,18 +3800,27 @@ def phase_matmul_kernel(rate: float) -> dict:
         got = ck.matmul_2d(x, w)
         again = ck.matmul_2d(x, w)
         want = ck.matmul_2d_plain(x, w)
+        # the launcher itself, into the first m rows of a larger buffer:
+        # the rows after them must keep their value
+        buf = torch.full((m + 64, n), 7.0, device="cuda", dtype=dt)
+        ck._launch("hvd_matmul", x.get_device(), x.data_ptr(), w.data_ptr(),
+                   ck._MM_DTYPES[dt], m, k, n, buf.data_ptr())
+        torch.cuda.synchronize()
+        kept = bool((buf[m:] == 7.0).all()) and bits_equal(buf[:m], got)
         diff = (got.float() - want.float()).abs()
         ratio = float((diff / mm_tolerance(x, w, got, want)).max())
         err = float(diff.max())
         ok = (ratio <= 1 and bits_equal(got, again) and got.dtype == dt
-              and bool(torch.isfinite(got).all()))
+              and kept and bool(torch.isfinite(got).all()))
         worst = max(worst, err)
         checks.append((what, ok, err, ratio))
         log(f"  matmul_2d {what} [{m}, {k}] @ [{k}, {n}] {dt}: max |kernel "
             f"- twin| {err:.3e} = {ratio:.3f} of its bound (two launches "
-            f"byte-equal {bits_equal(got, again)}): ok={ok}")
-        if what.endswith("chunk"):
+            f"byte-equal {bits_equal(got, again)}, rows past M kept "
+            f"{kept}): ok={ok}")
+        if " chunk" in what:
             timed[what] = (x, w)
+        del x, w, got, again, want, buf, diff
     failed = [c for c in checks if not c[1]]
     log(f"phase 7: K10 against its twin on the card: {not failed} "
         f"({len(checks)} checks)")
@@ -3790,53 +3831,31 @@ def phase_matmul_kernel(rate: float) -> dict:
         (m, k), n = x.shape, w.shape[1]
         nbytes = (m * k + k * n + m * n) * x.element_size()
         ops = 2 * m * k * n
-        bytes_ms, ops_ms = nbytes / rate * 1e3, ops / BF16_RATE * 1e3
+        peak = F32_RATE if x.dtype == torch.float32 else BF16_RATE
+        bytes_ms, ops_ms = nbytes / rate * 1e3, ops / peak * 1e3
         out[what] = {
             "shape": [m, k, n], "ms": cuda_ms(lambda: ck.matmul_2d(x, w), 20),
             "device_ms": device_ms(lambda: ck.matmul_2d(x, w), 10,
                                    ("hvd_mm",)),
             "plain_ms": cuda_ms(lambda: ck.matmul_2d_plain(x, w), 10),
             "library_ms": cuda_ms(lambda: torch.matmul(x, w), 20),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "operations": ops}
-        r = out[what]
-        log(f"  matmul_2d {what} [{m}, {k}] @ [{k}, {n}] bf16: kernel "
-            f"{r['ms']:.4f} ms (device {r['device_ms']}), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
-            f"(torch.matmul), bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({nbytes} bytes, {ops} operations) on {CARD}")
-    # the f32 route (hvd_mm_fma, FMA, not redesigned) at the same chunks,
-    # against torch.matmul in f32 with TF32 off (main() turns it off), as
-    # the reference's f32 contract has it; bound at the f32 FMA peak
-    for what, (m, k, n) in MM_CHUNKS.items():
-        x = torch.randn(m, k, generator=gen, device="cuda")
-        w = torch.randn(k, n, generator=gen, device="cuda")
-        nbytes, ops = (m * k + k * n + m * n) * 4, 2 * m * k * n
-        bytes_ms, ops_ms = nbytes / rate * 1e3, ops / F32_RATE * 1e3
-        r = out[f"{what} chunk f32"] = {
-            "shape": [m, k, n], "ms": cuda_ms(lambda: ck.matmul_2d(x, w), 5),
-            "device_ms": device_ms(lambda: ck.matmul_2d(x, w), 5,
-                                   ("hvd_mm_fma",)),
-            "plain_ms": cuda_ms(lambda: ck.matmul_2d_plain(x, w), 5),
-            "library_ms": cuda_ms(lambda: torch.matmul(x, w), 10),
             "tf32": torch.backends.cuda.matmul.allow_tf32,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": ops}
-        log(f"  matmul_2d {what} chunk [{m}, {k}] @ [{k}, {n}] f32 "
-            f"(hvd_mm_fma): kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']}), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms (torch.matmul, TF32 "
-            f"{'on' if r['tf32'] else 'off'}), bound {r['bound_ms']:.4f} ms "
-            f"by {r['bound_by']} at {F32_RATE / 1e12:g} TFLOP/s; no launch "
-            f"on the main path; on {CARD}")
+        r = out[what]
+        log(f"  matmul_2d {what} [{m}, {k}] @ [{k}, {n}] {x.dtype}: kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"(torch.matmul, TF32 {'on' if r['tf32'] else 'off'}), bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes, "
+            f"{ops} operations at {peak / 1e12:g} TFLOP/s); on {CARD}")
     row = dict(out["lm_head chunk"])
     row.update(name="matmul_2d", route="cuda", launches=0,
                source="horovod_tpu_torch/csrc/matmul.cu",
                replaces=REPLACES["matmul_2d"], max_abs_err=worst,
                library="torch.matmul (cuBLAS)", chunks=out, checks=checks,
-               sass=sass)
+               sass=sass, sass_f32=sass_f32)
     return row
 
 

@@ -56,14 +56,56 @@
 //     in L2 (the MLP chunk's 128 tiles fill 128 of the 132 SMs).
 //   Shared memory: 224 KB (+ 1 KB of alignment) of the 227 KB a block may
 //   take in each (MmSmem, MmResidentSmem below): one block an SM.
-// * f32: CUDA cores in full f32 FMA (no TF32: the reference contracts in
-//   f32). A block of 256 threads owns a 64 x 64 tile, 4 x 4 outputs a
-//   thread, K in 16-deep slices in shared memory. Not redesigned.
+// * f32 (hvd_mm_fma): CUDA cores in full f32 FMA (no TF32: the reference
+//   contracts in f32). Bound by operations at both chunks, at the f32 FMA
+//   peak (67 TFLOP/s on an H100 SXM: an SM retires 128 FMAs a clock, one
+//   warp instruction a clock on each of its 4 schedulers): 0.064 ms for
+//   the MLP chunk, 0.513 ms for the LM-head chunk (its 304 MB of f32
+//   operands and output take 0.091 ms at 3.35 TB/s). So every issue slot
+//   an FFMA does not take, and every stall, is time lost:
+//   - Register blocking. A thread owns 8 x 8 sums (64 accumulators); a
+//     warp a 32 x 64 part of the tile, lane 8 tm + tn its rows {0, 16} +
+//     4 tm + {0..3} and columns {0, 32} + 4 tn + {0..3}: two runs of 4,
+//     half the warp's part apart (CUTLASS's SIMT layout). A k step is 4
+//     LDS.128 (two of A, two of B) for 64 FFMAs, where 4 x 4 sums a thread
+//     take 8 scalar loads for 16 and hold a kernel near half the FMA peak
+//     at the shared-memory pipe. The 8 lanes of a quarter warp read one A
+//     address and the 4 quarters one 128-byte run of B: no bank conflict.
+//     The next k's fragments load while a k's 64 products run.
+//   - The feed. K in 16-deep slices through a ring of 4 stages in shared
+//     memory; while slice t is multiplied, t + 1 and t + 2 have landed or
+//     are landing and t + 3 is in flight. B (k rows of 128 contiguous
+//     columns) comes by cp.async, 16 bytes a copy (LDGSTS). A is
+//     row-major with k contiguous, but the fragments want it k-major: a
+//     thread loads 16-byte chunks of 4 k (LDG.128) when their slice goes
+//     in flight and stores them transposed ([k][row], the k row 4 floats
+//     longer than the tile) after the slice being multiplied has issued
+//     its products, three slices ahead of their use. One barrier a slice,
+//     before its last k's products, so the next slice's first fragments
+//     load while those run.
+//   - The stores. A row's two runs of 4 go out as 16-byte evict-first
+//     stores, a warp's store 4 rows x 128 contiguous bytes; several
+//     blocks share an SM, so one block's stores and the next block's fill
+//     run under the other blocks' main loops.
+//   - The schedule by shape. 128 x 128 tiles (8 warps, 2 blocks an SM at
+//     128 registers a thread) where M >= 128 and they number at least
+//     two an SM (the LM-head chunk: 4096): the most reuse of each slice
+//     from shared memory and L2, and a second block to cover each one's
+//     fill and stores. Otherwise 32 x 128 tiles (2 warps; shared memory
+//     holds 5 blocks an SM): the MLP chunk's 128 tiles of 128 x 128
+//     would leave 4 of the 132 SMs idle and make each SM's 8 warps wait
+//     on one barrier, where its 512 tiles of 32 x 128 reach every SM in
+//     blocks that wait on their own; and at small M a tile runs 32 rows,
+//     not 128, past M.
+//     Tiles are numbered M fastest, so the blocks at work at once share
+//     their B columns in L2.
 //
 // Arithmetic: every output is an f32 sum of products of the input values.
-// In the f32 path one thread adds an output's products in k order; in the
-// bf16 path the order within a 16-deep step is the tensor cores'. Either
-// way equal inputs give equal bits: no atomics, no split of K.
+// In the f32 path every output is one fmaf chain over k = 0, 1, ..., K - 1
+// from +0.0, in one thread, whatever the tile: both schedules give the
+// same bits. In the bf16 path the order within a 16-deep step is the
+// tensor cores'. Either way equal inputs give equal bits: no atomics, no
+// split of K.
 //
 // hvd_matmul encodes the tensor maps on the host (sm90.cuh: through the
 // runtime's driver entry point, reused per thread), launches on the given
@@ -417,59 +459,180 @@ hvd_mm_wgmma_resident(const __grid_constant__ CUtensorMap mx,
 }
 
 // -------------------------------------------------------------- f32, FMA
-constexpr int kFmaThreads = 256;
-constexpr int FM = 64, FN = 64, FK = 16;
+constexpr int kF32K = 16;      // k of a slice
+constexpr int kF32Stages = 4;  // slices in the ring
 
-__global__ void __launch_bounds__(kFmaThreads)
+// The ring of a block of WM x 2 warps (tile 32 WM x 128): A slices
+// transposed ([k][row]; a k row 4 floats longer than the tile, so a warp's
+// transposing stores meet at most two to a bank and the fragment loads
+// stay 16-byte aligned), B slices as they are ([k][column]).
+template <int WM>
+struct FmaSmem {
+  float a[kF32Stages][kF32K][32 * WM + 4];
+  float b[kF32Stages][kF32K][128];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 lds128(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Output tiles of 32 WM x 128, numbered M fastest (the blocks at work at
+// once share their B columns in L2). Warp w owns the 32 x 64 part at row
+// 32 (w % WM), column 64 (w / WM); its lane l = 8 tm + tn owns rows
+// {0, 16} + 4 tm + {0..3} and columns {0, 32} + 4 tn + {0..3} of that:
+// 8 x 8 sums, each one fmaf chain over k = 0, 1, ..., K - 1 from +0.0.
+template <int WM>
+__global__ void __launch_bounds__(64 * WM, WM == 4 ? 2 : 4)
 hvd_mm_fma(const float* __restrict__ x, const float* __restrict__ w,
-           float* __restrict__ out, int64_t M, int64_t K, int64_t N) {
-  __shared__ float sa[FK][FM + 4];  // the A slice transposed: sa[k][row]
-  __shared__ float sb[FK][FN];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * FM;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * FN;
-  // the thread's outputs: rows ty + 16 i, columns tx + 16 j
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+           float* __restrict__ out, int M, int K, int N) {
+  constexpr int BM = 32 * WM, BN = 128, kThreads = 64 * WM;
+  constexpr int kPitch = BM + 4;
+  constexpr int kAChunks = BM * kF32K / 4 / kThreads;  // a thread's
+  constexpr int kBChunks = kF32K * BN / 4 / kThreads;
+  constexpr int kARowStep = kThreads / (kF32K / 4);  // rows between them
+  FmaSmem<WM>& s = smem_as<FmaSmem<WM>>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m_tiles = (M + BM - 1) / BM;
+  const int row0 = blockIdx.x % m_tiles * BM;
+  const int col0 = blockIdx.x / m_tiles * BN;
+  const int slices = K / kF32K;
 
-  for (int64_t k0 = 0; k0 < K; k0 += FK) {
+  // The copies: A chunk q of this thread is 4 k of row a_row + q
+  // kARowStep, through registers into the transposed slice; B chunk q is
+  // 4 columns of k row (tid + q kThreads) / (BN / 4), by cp.async.
+  const int a_row = tid / (kF32K / 4), a_k = tid % (kF32K / 4) * 4;
+  const float* xa = x + static_cast<int64_t>(row0 + a_row) * K + a_k;
+  const int64_t a_step = static_cast<int64_t>(kARowStep) * K;
+  const float* wb = w + static_cast<int64_t>(tid / (BN / 4)) * N + col0 +
+                    tid % (BN / 4) * 4;
+  const int64_t b_step = static_cast<int64_t>(kThreads / (BN / 4)) * N;
+  const int64_t b_slice = static_cast<int64_t>(kF32K) * N;
+  const auto load_a = [&](int t, float4(&av)[kAChunks]) {
 #pragma unroll
-    for (int q = 0; q < FM * FK / kFmaThreads; ++q) {
-      const int e = tid + q * kFmaThreads;
-      const int r = e >> 4, kk = e & 15;
-      const int64_t gr = row0 + r;
-      sa[kk][r] = gr < M ? x[gr * K + k0 + kk] : 0.f;
+    for (int q = 0; q < kAChunks; ++q)
+      av[q] = row0 + a_row + q * kARowStep < M
+                  ? *reinterpret_cast<const float4*>(xa + q * a_step +
+                                                     t * kF32K)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  const auto store_a = [&](int t, const float4(&av)[kAChunks]) {
+    float(&sa)[kF32K][kPitch] = s.a[t % kF32Stages];
+#pragma unroll
+    for (int q = 0; q < kAChunks; ++q) {
+      const int r = a_row + q * kARowStep;
+      sa[a_k][r] = av[q].x;
+      sa[a_k + 1][r] = av[q].y;
+      sa[a_k + 2][r] = av[q].z;
+      sa[a_k + 3][r] = av[q].w;
     }
+  };
+  const auto copy_b = [&](int t) {
+    float* const sb = &s.b[t % kF32Stages][0][0];
 #pragma unroll
-    for (int q = 0; q < FK * FN / kFmaThreads; ++q) {
-      const int e = tid + q * kFmaThreads;
-      const int kk = e >> 6, cc = e & 63;
-      sb[kk][cc] = w[(k0 + kk) * N + col0 + cc];
+    for (int q = 0; q < kBChunks; ++q)
+      cp_async16(sb + (tid + q * kThreads) * 4, wb + q * b_step + t * b_slice);
+  };
+
+  // the first kF32Stages - 1 slices, their A loads all in flight at once
+  float4 first[kF32Stages - 1][kAChunks];
+#pragma unroll
+  for (int t = 0; t < kF32Stages - 1; ++t) {
+    if (t < slices) {
+      load_a(t, first[t]);
+      copy_b(t);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t gr = row0 + ty + 16 * i;
-    if (gr < M) {
+  for (int t = 0; t < kF32Stages - 1; ++t)
+    if (t < slices) store_a(t, first[t]);
+  cp_async_wait<kF32Stages - 2>();
+  __syncthreads();
+
+  const int a_off = (warp % WM) * 32 + (lane >> 3) * 4;
+  const int b_off = (warp / WM) * 64 + (lane & 7) * 4;
+  float acc[8][8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[gr * N + col0 + tx + 16 * j] = acc[i][j];
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // a k's fragments: A rows {0, 16} + 4 tm + {0..3}, B columns {0, 32} +
+  // 4 tn + {0..3}, one LDS.128 each run of 4; while one k's 64 products
+  // run, the next k's fragments load
+  float a[2][8], b[2][8];
+  const auto fragments = [&](int stage, int kk, float(&fa)[8],
+                             float(&fb)[8]) {
+    const float* sa = &s.a[stage][kk][a_off];
+    const float* sb = &s.b[stage][kk][b_off];
+    const float4 a0 = lds128(sa), a1 = lds128(sa + 16);
+    const float4 b0 = lds128(sb), b1 = lds128(sb + 32);
+    fa[0] = a0.x, fa[1] = a0.y, fa[2] = a0.z, fa[3] = a0.w;
+    fa[4] = a1.x, fa[5] = a1.y, fa[6] = a1.z, fa[7] = a1.w;
+    fb[0] = b0.x, fb[1] = b0.y, fb[2] = b0.z, fb[3] = b0.w;
+    fb[4] = b1.x, fb[5] = b1.y, fb[6] = b1.z, fb[7] = b1.w;
+  };
+  fragments(0, 0, a[0], b[0]);
+  for (int t = 0; t < slices; ++t) {
+    // slice t + kF32Stages - 1 goes in flight (its stage was read in the
+    // slice before this one); slice t is multiplied meanwhile
+    const int next = t + kF32Stages - 1;
+    float4 av[kAChunks];
+    if (next < slices) {
+      load_a(next, av);
+      copy_b(next);
+    }
+    cp_async_commit();
+    const int stage = t % kF32Stages;
+#pragma unroll
+    for (int kk = 0; kk < kF32K; ++kk) {
+      if (kk + 1 < kF32K) {
+        fragments(stage, kk + 1, a[(kk + 1) & 1], b[(kk + 1) & 1]);
+      } else {
+        // the last k's fragments are in registers: the barrier comes
+        // before its products, and the next slice's first fragments load
+        // while they run
+        if (next < slices) store_a(next, av);
+        cp_async_wait<kF32Stages - 2>();
+        __syncthreads();
+        fragments((t + 1) % kF32Stages, 0, a[0], b[0]);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = fmaf(a[kk & 1][i], b[kk & 1][j], acc[i][j]);
+    }
+  }
+
+  // 16-byte stores, evict-first (the output is not read again here); a
+  // warp's store covers 4 rows x 128 contiguous bytes
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (warp % WM) * 32 + (i >> 2) * 16 + (lane >> 3) * 4 +
+                  (i & 3);
+    if (r < M) {
+      float* const o = out + static_cast<int64_t>(r) * N + col0 + b_off;
+      __stcs(reinterpret_cast<float4*>(o),
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      __stcs(reinterpret_cast<float4*>(o + 32),
+             make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
     }
   }
 }
@@ -546,6 +709,38 @@ int matmul_bf16(const void* x, const void* w, int64_t m, int64_t k,
                       tiles < sms ? tiles : sms, st);
 }
 
+template <int WM>
+int launch_fma(const float* x, const float* w, int m, int k, int n,
+               float* out, cudaStream_t st) {
+  constexpr int kSmem = smem_bytes<FmaSmem<WM>>();
+  static const cudaError_t limit = allow_smem(hvd_mm_fma<WM>, kSmem);
+  if (limit != cudaSuccess) return failed("raising the smem limit", limit);
+  const int64_t blocks =
+      static_cast<int64_t>((m + 32 * WM - 1) / (32 * WM)) * (n / 128);
+  if (blocks > INT32_MAX)
+    return failed("checking the sizes", cudaErrorInvalidValue);
+  cudaGetLastError();  // an earlier call's error is not this launch's
+  hvd_mm_fma<WM><<<static_cast<unsigned>(blocks), 64 * WM, kSmem, st>>>(
+      x, w, out, m, k, n);
+  const cudaError_t e = cudaGetLastError();
+  return e == cudaSuccess ? 0 : failed("launching the f32 kernel", e);
+}
+
+int matmul_f32(const float* x, const float* w, int64_t m, int64_t k,
+               int64_t n, float* out, cudaStream_t st) {
+  if (m > INT32_MAX || k > INT32_MAX || n > INT32_MAX)
+    return failed("checking the sizes", cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return failed("counting the SMs", cudaErrorInvalidDevice);
+  const int mi = static_cast<int>(m), ki = static_cast<int>(k),
+            ni = static_cast<int>(n);
+  // the schedule by shape (see the header)
+  const int64_t tiles = static_cast<int64_t>((mi + 127) / 128) * (ni / 128);
+  return mi >= 128 && tiles >= 2 * sms
+             ? launch_fma<4>(x, w, mi, ki, ni, out, st)
+             : launch_fma<1>(x, w, mi, ki, ni, out, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,18 +754,10 @@ int hvd_matmul(const void* x, const void* w, int dtype, int64_t m, int64_t k,
   if (m <= 0 || k <= 0 || n <= 0 || k % kBK || n % 128)
     return failed("checking the sizes", cudaErrorInvalidValue);
   switch (dtype) {
-    case kF32: {
-      const dim3 grid(static_cast<unsigned>(n / FN),
-                      static_cast<unsigned>((m + FM - 1) / FM));
-      if (grid.y > 65535u)
-        return failed("checking the sizes", cudaErrorInvalidValue);
-      cudaGetLastError();
-      hvd_mm_fma<<<grid, kFmaThreads, 0, st>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(out), m, k, n);
-      const cudaError_t e = cudaGetLastError();
-      return e == cudaSuccess ? 0 : failed("launching the f32 kernel", e);
-    }
+    case kF32:
+      return matmul_f32(static_cast<const float*>(x),
+                        static_cast<const float*>(w), m, k, n,
+                        static_cast<float*>(out), st);
     case kBF16:
       return matmul_bf16(x, w, m, k, n, out, st);
   }

@@ -160,7 +160,7 @@ def _check_2d(t: torch.Tensor, what: str, dtypes,
                              f"contiguous (strides {t.stride()})")
     elif not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cuda or t.is_cpu):
         raise ValueError(f"{what}: unsupported device {t.device}")
 
 
@@ -1052,30 +1052,33 @@ def matmul_2d_plain(x2, w2):
 def matmul_2d(x2, w2):
     """x2 [M, K] @ w2 [K, N], f32 or bf16 (one dtype), contiguous ->
     [M, N] in that dtype, the sum accumulated in f32 (bf16: wgmma with TMA
-    loads and stores, a persistent kernel; f32: full f32 FMA, no TF32).
+    loads and stores, a persistent kernel; f32: full f32 FMA, no TF32,
+    each output one fmaf chain in k order, 8 x 8 sums a thread).
     Replaces ``pallas_kernels.matmul_2d``; raises ``ValueError`` on mixed
     dtypes or a shape ``matmul_tiles`` refuses. Forward only, as the TPU
     kernel (no VJP)."""
     _check_2d(x2, "matmul_2d x", _MM_DTYPES)
     _check_2d(w2, "matmul_2d w", _MM_DTYPES)
-    if x2.dtype != w2.dtype or x2.device != w2.device:
+    index = x2.get_device()  # -1 on the CPU
+    if x2.dtype != w2.dtype or index != w2.get_device():
         raise ValueError(f"matmul_2d: x {x2.dtype} on {x2.device} and w "
                          f"{w2.dtype} on {w2.device} must share dtype and "
                          "device")
-    (mdim, kdim), ndim = x2.shape, w2.shape[1]
-    if w2.shape[0] != kdim or matmul_tiles(mdim, kdim, ndim) is None:
+    (mdim, kdim), (kw, ndim) = x2.shape, w2.shape
+    if kw != kdim or matmul_tiles(mdim, kdim, ndim) is None:
         raise ValueError(f"matmul_2d: [{mdim}, {kdim}] @ {list(w2.shape)} "
                          "does not tile (K and N multiples of 128, M of 8)")
-    if x2.device.type == "cpu":
+    if index < 0:
         return matmul_2d_plain(x2, w2)
     if not (mdim and kdim and ndim):  # an empty sum is 0
         return torch.zeros((mdim, ndim), dtype=x2.dtype, device=x2.device)
-    if x2.data_ptr() % 16 or w2.data_ptr() % 16:
+    xp, wp = x2.data_ptr(), w2.data_ptr()
+    if xp % 16 or wp % 16:
         raise ValueError("matmul_2d: operands must start on a 16-byte "
                          "boundary")
-    out = torch.empty((mdim, ndim), dtype=x2.dtype, device=x2.device)
-    _launch("hvd_matmul", x2.get_device(), x2.data_ptr(), w2.data_ptr(),
-            _MM_DTYPES[x2.dtype], mdim, kdim, ndim, out.data_ptr())
+    out = x2.new_empty((mdim, ndim))
+    _launch("hvd_matmul", index, xp, wp, _MM_DTYPES[x2.dtype], mdim, kdim,
+            ndim, out.data_ptr())
     matmul_2d.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 """Time kernels of two checkouts of the port on one card: the int8 / int4
 wire kernels (#1-#4), the Adasum combine K4, K5-K8, K10.
 
-    python3 kernel_ab.py --parent DIR [--report PATH] [--only adasum]
+    python3 kernel_ab.py --parent DIR [--report PATH] [--only adasum|matmul]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory ``.gitignore``
@@ -61,7 +61,12 @@ on the card shows. Every side times:
 * ``mm_lm_head`` / ``mm_mlp_out``: ``matmul_2d`` (K10) at the fused
   ring's two bf16 chunks, ``[2048, 256] @ [256, 32768]`` and ``[2048,
   1024] @ [1024, 1024]``, and ``torch.matmul`` on the same operands
-  (``_library``);
+  (``_library``); ``mm_lm_head_f32`` / ``mm_mlp_out_f32`` (and their
+  ``_library``), the same in f32 (K10's f32 route; TF32 off);
+  ``mm_f32_sha256``, the SHA-256 of K10's f32 output at both chunks and at
+  ``chip_smoke.MM_F32_RAGGED``'s ragged shapes, on seeded inputs that
+  both sides share: the summary's ``mm_f32_bits_equal`` says whether every
+  side gave the same bits (``--only matmul`` times K10 alone);
 * ``ln``: ``layer_norm_fwd`` (K8) at ``[8192, 1024]`` bf16 with f32 gamma
   and beta; ``ln_as_called``, ``fused_layer_norm`` as the model calls it
   (autograd recording); ``ln_library``, ``F.layer_norm`` with gamma and
@@ -69,7 +74,8 @@ on the card shows. Every side times:
 
 Each is the median of per-call CUDA-event times (ms), and for the kernels
 also the device time a call from ``torch.profiler`` (kernels whose name
-holds ``flash``, ``hvd_mm``, ``ln_fwd`` or ``adasum_``; for the wire,
+holds ``flash``, ``hvd_mm`` (``hvd_mm_fma`` for f32), ``ln_fwd`` or
+``adasum_``; for the wire,
 each call runs one kernel: ``int8_quant_tiles`` (the register path of #1
 and #3) or a general loop's ``int8_quant_rows`` / ``int8_quant_pack`` for
 #1 and #3, the parent's ``int8_quant_kernel`` for #1, ``int8_dequant`` for
@@ -266,6 +272,43 @@ def adasum_host(torch, ck) -> dict:
     return out
 
 
+def matmul_calls(torch, ck) -> dict:
+    """K10's calls at the ring's two chunks, bf16 and f32, with
+    ``torch.matmul`` on the same operands (see the module's docstring)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    calls = {}
+    for chunk, (m, kd, n) in (("lm_head", (2048, 256, 32768)),
+                              ("mlp_out", (2048, 1024, 1024))):
+        for dt, tag, match in ((torch.bfloat16, "", "hvd_mm"),
+                               (torch.float32, "_f32", "hvd_mm_fma")):
+            xm = torch.randn(m, kd, generator=gen, device="cuda").to(dt)
+            wm = torch.randn(kd, n, generator=gen, device="cuda").to(dt)
+            calls[f"mm_{chunk}{tag}"] = (
+                lambda xm=xm, wm=wm: ck.matmul_2d(xm, wm), match)
+            calls[f"mm_{chunk}{tag}_library"] = (
+                lambda xm=xm, wm=wm: torch.matmul(xm, wm), None)
+    return calls
+
+
+def matmul_f32_digests(torch, ck) -> dict:
+    """SHA-256 of K10's f32 output, by case, on inputs seeded the same on
+    every side."""
+    import hashlib
+
+    from chip_smoke import MM_CHUNKS, MM_F32_RAGGED
+
+    shapes = {f"{name} chunk": shape for name, shape in MM_CHUNKS.items()}
+    shapes.update(MM_F32_RAGGED)
+    out = {}
+    for i, (what, (m, kd, n)) in enumerate(sorted(shapes.items())):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        xm = torch.randn(m, kd, generator=gen, device="cuda")
+        wm = torch.randn(kd, n, generator=gen, device="cuda")
+        got = ck.matmul_2d(xm, wm)
+        out[what] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
 def worker(root: str, only) -> dict:
     """One side: this process imports the port from ``root`` and the
     timers from this checkout's ``chip_smoke.py``; ``only``: the groups
@@ -283,6 +326,13 @@ def worker(root: str, only) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"root": root, "card": torch.cuda.get_device_name(0)}
+    if only == ["matmul"]:
+        for name, (fn, match) in matmul_calls(torch, ck).items():
+            res[f"{name}_ms"] = cuda_ms(fn, 30, 5)
+            if match is not None:
+                res[f"{name}_device_ms"] = device_ms(fn, 10, (match,))
+        res["mm_f32_sha256"] = matmul_f32_digests(torch, ck)
+        return res
     if only == ["adasum"]:
         calls = adasum_calls(torch, ck)
         for name, (fn, match) in calls.items():
@@ -325,16 +375,7 @@ def worker(root: str, only) -> dict:
         RING["seq"] // RING["sp"], 16, 64, torch.bfloat16)
     for hop in ("below", "diagonal"):
         calls.update(hop_calls(torch, F, ck, hop, *hops[hop], carry))
-    for chunk, (m, kd, n) in (("lm_head", (2048, 256, 32768)),
-                              ("mlp_out", (2048, 1024, 1024))):
-        xm = torch.randn(m, kd, generator=gen, device="cuda").to(
-            torch.bfloat16)
-        wm = torch.randn(kd, n, generator=gen, device="cuda").to(
-            torch.bfloat16)
-        calls[f"mm_{chunk}"] = (
-            lambda xm=xm, wm=wm: ck.matmul_2d(xm, wm), "hvd_mm")
-        calls[f"mm_{chunk}_library"] = (
-            lambda xm=xm, wm=wm: torch.matmul(xm, wm), None)
+    calls.update(matmul_calls(torch, ck))
     x = torch.randn(8192, 1024, generator=gen, device="cuda").to(
         torch.bfloat16)
     gm = torch.randn(1024, generator=gen, device="cuda")
@@ -355,6 +396,7 @@ def worker(root: str, only) -> dict:
                 fn, 10, match if isinstance(match, tuple) else (match,))
     res.update(layer_norm_host(torch, ck, fused_layer_norm))
     res["adasum"] = adasum_host(torch, ck)
+    res["mm_f32_sha256"] = matmul_f32_digests(torch, ck)
     return res
 
 
@@ -362,8 +404,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="the other checkout's directory")
     parser.add_argument("--report", help="also write the results here")
-    parser.add_argument("--only", choices=["adasum"], action="append",
-                        default=[], help="time K4 alone")
+    parser.add_argument("--only", choices=["adasum", "matmul"],
+                        action="append", default=[],
+                        help="time K4 or K10 alone")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
@@ -400,7 +443,11 @@ def main(argv=None) -> int:
             if key.endswith("_ms"):
                 summary[f"{label}_{key}"] = [s[key] for s in mine]
         summary[f"{label}_host_us"] = [s.get("host_us") for s in mine]
-        summary[f"{label}_adasum"] = [s["adasum"] for s in mine]
+        summary[f"{label}_adasum"] = [s.get("adasum") for s in mine]
+    digests = [s["mm_f32_sha256"] for s in sides if "mm_f32_sha256" in s]
+    if digests:
+        summary["mm_f32_bits_equal"] = all(d == digests[0] for d in digests)
+        summary["mm_f32_sha256"] = digests[0]
     print(json.dumps(summary), flush=True)
     if args.report:
         with open(args.report, "w") as f:

@@ -480,6 +480,44 @@ def test_matmul_wgmma_matches_twin(case):
     assert ck.launch_counts()["matmul_2d"] == 2
 
 
+MM_F32_CASES = {  # (M, K, N) on each of the f32 kernel's two schedules
+    "lm_head chunk (128 x 128 tiles)": (2048, 256, 32768),
+    "mlp_out chunk (32 x 128 tiles)": (2048, 1024, 1024),
+    "M=520, K=256, 128 x 128 tiles": (520, 256, 32768),
+    "M=264, K=1024, 128 x 128 tiles": (264, 1024, 32768),
+    "M=520, K=1024, 32 x 128 tiles": (520, 1024, 1024),
+    "M=520, K=256, N=128": (520, 256, 128),
+    "M=264, K=128, N=384": (264, 128, 384),
+    "M=8, K=128, N=128": (8, 128, 128),
+    "M=8, K=1024, N=128": (8, 1024, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MM_F32_CASES))
+def test_matmul_fma_matches_twin(case):
+    """The f32 FMA kernel at both chunks and at ragged M on each schedule
+    (128 x 128 or 32 x 128 tiles): within phase 7's bound of the twin (TF32
+    off), two launches byte-equal, nothing written past row M, one launch
+    counted each."""
+    m, k, n = MM_F32_CASES[case]
+    gen = _gen()
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda")
+    want = _mm_twin(x, w)
+    got = ck.matmul_2d(x, w)
+    again = ck.matmul_2d(x, w)
+    buf = torch.full((m + 64, n), 7.0, device="cuda")
+    ck._launch("hvd_matmul", x.get_device(), x.data_ptr(), w.data_ptr(), 0,
+               m, k, n, buf.data_ptr())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(buf[:m].view(torch.int32), got.view(torch.int32))
+    assert bool((buf[m:] == 7.0).all())
+    assert ((got - want).abs() <= _mm_bound(x, w, got, want)).all()
+    assert ck.launch_counts()["matmul_2d"] == 2
+
+
 def test_matmul_launches_from_a_fresh_thread():
     """K10's launcher encodes tensor maps, which needs a current context: a
     thread that has made no CUDA runtime call still launches it and gets
